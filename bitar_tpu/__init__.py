@@ -1,8 +1,8 @@
-"""bitar-tpu: a TPU-native block compression/decompression execution engine.
+"""bitar-tpu: a block compression/decompression execution engine on JAX.
 
-Capability-parity rebuild of ljishen/bitar (a DPU DEFLATE offload library)
-re-designed TPU-first: block-level LZ4/Snappy/Zstd over JAX/Pallas with
-explicit manifests, an HBM slot arena, sync + async streams, and multi-chip
+Capability-parity rebuild of ljishen/bitar (a DPU DEFLATE offload library):
+block-level LZ4/Snappy/Zstd with explicit manifests, a device-memory slot
+arena, sync + async streams, device-side decode on a GPU, and multi-device
 sharding.  See ARCHITECTURE.md for the layer map.
 
 Quick start::

@@ -1,22 +1,19 @@
-"""Multi-process (multi-host) scaling benchmark for the fused
-shuffle+decode step.
+"""Multi-process harness for the fused shuffle+decode step, on CPU devices.
 
 The reference's topology ceiling is one process with lcores sharing an
-address space (``driver.cc:100-158``); the TPU build's pod story is one
+address space (``driver.cc:100-158``); the multi-host story here is one
 process per host joined by ``jax.distributed``, a global mesh spanning
 every process's devices, and the block shuffle riding the mesh
-collectives.  This harness actually runs that shape: N processes on
+collectives.  This harness runs that shape on one machine: N processes on
 localhost, each owning ``--devices-per-process`` virtual CPU devices,
-driving ``distributed_step_flat`` (or the ring variant) over the global
-mesh and measuring blocks/s — the scaling-efficiency number of BASELINE
-config 5.
+driving ``distributed_step`` over the global mesh.  It checks the
+cross-process path end to end; its times are CPU times, reported under
+``cpu_*`` names, and say nothing about a GPU.
 
 Efficiency is WEAK-scaling: the 1-process baseline runs ``blocks / N``
-blocks on its ``1/N``-size mesh, so both arms execute IDENTICAL
-per-device grid shapes and the ratio isolates the cross-process
-collective + coordination cost (a strong-scaling baseline on this
-interpret-mode backend reads >1.0 for structural reasons — grid-size
-nonlinearity — and would hide real regressions).
+blocks on its ``1/N``-size mesh, so both arms execute identical
+per-device shapes and the ratio isolates the cross-process collective +
+coordination cost.
 
 Launch (spawns workers, waits, writes the artifact)::
 
@@ -38,49 +35,48 @@ import sys
 import time
 
 BLOCK = 16 * 1024
-NROWS = BLOCK // 128
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def build_batch_flat(nblocks: int):
-    """ Deterministic corpus + per-block FLAT plan buffers (dense wire)."""
+def build_batch(nblocks: int):
+    """Deterministic corpus: (raw blocks, slot rows, tables, nseq)."""
     import numpy as np
 
     from bitar_tpu.ops.cpu import native
+    from bitar_tpu.ops.decode import TABLE_KEYS, pad_tables
 
     rng = np.random.default_rng(7)
-    datas = []
+    datas, comps, tables = [], [], []
     for i in range(nblocks):
         k = i % 4
         if k == 0:
-            datas.append(((b"multihost block %d " % i) * (BLOCK // 17 + 1))[:BLOCK])
+            x = ((b"multihost block %d " % i) * (BLOCK // 17 + 1))[:BLOCK]
         elif k == 1:
-            datas.append(rng.integers(0, 8, BLOCK, dtype=np.uint8).tobytes())
+            x = rng.integers(0, 8, BLOCK, dtype=np.uint8).tobytes()
         elif k == 2:
-            datas.append(bytes([i & 0xFF]) * BLOCK)
+            x = bytes([i & 0xFF]) * BLOCK
         else:
-            datas.append(rng.integers(0, 256, BLOCK, np.uint8).tobytes())
-    comps, cids = [], []
-    for x in datas:
+            x = rng.integers(0, 256, BLOCK, np.uint8).tobytes()
+        datas.append(x)
         c = np.asarray(native.lz4_compress(x, min_match=6))
         if len(c) >= BLOCK:               # engine RAW fallback semantics
             c = np.frombuffer(x, np.uint8)
-            cids.append(3)
+            t = {k: np.zeros(1, np.int32) for k in TABLE_KEYS}
+            t["lit_len"][0] = BLOCK
         else:
-            cids.append(0)
+            t = native.parse_sequences(c, "lz4")
         comps.append(c)
-    src = np.concatenate(comps)
-    lens = np.array([len(c) for c in comps], np.int32)
-    off = np.zeros(nblocks, np.int64)
-    off[1:] = np.cumsum(lens[:-1].astype(np.int64))
-    se, sh, pu, p0, st, _, dq, ra, dn = native.plan_batch_flat(
-        src, off, lens, np.full(nblocks, BLOCK, np.int32),
-        np.asarray(cids, np.int32), NROWS, 160, cb=4)
-    assert (st == 0).all(), st
-    return datas, comps, (se, sh, pu, p0, dq, ra, dn)
+        tables.append(t)
+    rows = np.zeros((nblocks, BLOCK + BLOCK // 8), np.uint8)
+    for i, c in enumerate(comps):
+        rows[i, :len(c)] = c
+    t, nseq = pad_tables(tables)
+    sizes = np.array([len(c) for c in comps], np.int64)
+    return datas, rows, t, nseq, sizes
+
 
 def worker(args) -> int:
-    # Platform setup must precede any jax backend use; the env var alone
-    # is pinned by site configuration on the dev machine.
+    # Platform setup must precede any jax backend use.
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", args.devices_per_process)
@@ -95,12 +91,10 @@ def worker(args) -> int:
 
     from bitar_tpu.parallel import (
         BLOCKS_AXIS,
-        distributed_step_flat,
-        distributed_step_ring_flat,
+        distributed_step,
         make_mesh,
         plan_shuffle,
-        prepare_flat_wires_for_recv,
-        prepare_ring_flat_wires_for_recv,
+        prepare_distributed_step,
     )
 
     d = jax.device_count()
@@ -110,23 +104,13 @@ def worker(args) -> int:
     pc, pi = args.processes, args.process_id
 
     nblocks = args.blocks
-    datas, comps, flat_bufs = build_batch_flat(nblocks)
-    comp_rows = NROWS                      # RAW blocks fill the plane
-    slot = comp_rows * 128
-    sizes = np.array([len(c) for c in comps], np.int64)
+    datas, rows, tables, nseq, sizes = build_batch(nblocks)
     shard_cfg = None
     if args.skew_bucket_log > 0:
         from bitar_tpu.config import ShardingConfig
         shard_cfg = ShardingConfig(data_axis=BLOCKS_AXIS, mesh_shape=(d,),
                                    skew_bucket_log=args.skew_bucket_log)
     splan = plan_shuffle(nblocks, d, sizes=sizes, config=shard_cfg)
-    rows = np.zeros((nblocks, slot), np.uint8)
-    for i, c in enumerate(comps):
-        rows[i, :len(c)] = c
-    per_src = nblocks // d
-    send_idx = (splan.send_order % max(1, per_src)).reshape(d, 1, -1).astype(np.int32)
-    valid = (splan.send_order >= 0).reshape(d, 1, -1)
-
     sharding = NamedSharding(mesh, P(BLOCKS_AXIS))
 
     def put(a):
@@ -134,26 +118,13 @@ def worker(args) -> int:
         a = np.ascontiguousarray(a)
         if pc == 1:
             return jax.device_put(a, sharding)
+        per = a.shape[0] // pc
         return jax.make_array_from_process_local_data(
-            sharding, a[pi * (a.shape[0] // pc):(pi + 1) * (a.shape[0] // pc)])
+            sharding, a[pi * per:(pi + 1) * per])
 
-    se, sh, pu, p0, dq, ra, dn = flat_bufs
-    prep = (prepare_ring_flat_wires_for_recv if args.step == "ring-flat"
-            else prepare_flat_wires_for_recv)
-    wires = prep(splan, se, sh, pu, p0, dq, ra, dn, NROWS)
-    dev_args = (put(rows), put(send_idx), put(valid),
-                put(wires["p_used"]), put(wires["p_off"]),
-                put(wires["p0"]), put(wires["dense"]),
-                put(wires["dq_idx"]), put(wires["se"]),
-                put(wires["shift"]), put(wires["dq"]),
-                put(wires["row_a"]))
-    kwargs = dict(mesh=mesh, rows_per_pair=splan.rows_per_pair,
-                  comp_rows=comp_rows, block_size=BLOCK, interpret=True)
-    step = (distributed_step_ring_flat if args.step == "ring-flat"
-            else distributed_step_flat)
-
-    out = step(*dev_args, **kwargs)
-    jax.block_until_ready(out)
+    dev_args, kwargs = prepare_distributed_step(
+        mesh, splan, rows, tables, nseq, BLOCK, put=put)
+    out = jax.block_until_ready(distributed_step(*dev_args, **kwargs))
 
     # Verify this process's local shards bit-exactly.
     flat = splan.recv_block.reshape(-1)
@@ -172,220 +143,73 @@ def worker(args) -> int:
     best = float("inf")
     for _ in range(args.reps):
         t0 = time.perf_counter()
-        out = step(*dev_args, **kwargs)
-        jax.block_until_ready(out)
+        jax.block_until_ready(distributed_step(*dev_args, **kwargs))
         best = min(best, time.perf_counter() - t0)
-    blocks_per_s = nblocks / best
 
-    result = dict(processes=pc, devices=d, blocks=nblocks,
-                  step_ms=round(best * 1e3, 2),
-                  blocks_per_s=round(blocks_per_s, 1),
-                  verified_blocks=checked)
-
-    if args.phases and args.step == "flat":
-        # Phase attribution: the fused step = stage+exchange | decode.
-        # Two auxiliary programs time each phase alone so a scaling loss
-        # can be LOCATED (cross-process collective vs per-shard decode)
-        # instead of inferred — round-4 verdict: 0.698 with no breakdown.
-        from jax.sharding import PartitionSpec as P
-
-        from bitar_tpu.ops.pallas.lz4_decode_flat import (
-            bias_planes,
-            decode_blocks_flat,
-        )
-        rpp = splan.rows_per_pair
-
-        def exch_local(rows_l, send_idx_l, valid_l):
-            staged = rows_l[send_idx_l[0, 0]] * valid_l[0, 0][:, None].astype(
-                rows_l.dtype)
-            staged = staged.reshape(d, rpp, slot)
-            recv = jax.lax.all_to_all(staged, BLOCKS_AXIS, split_axis=0,
-                                      concat_axis=0)
-            return recv.reshape(d * rpp, slot)
-
-        exch = jax.jit(jax.shard_map(
-            exch_local, mesh=mesh, in_specs=(P(BLOCKS_AXIS),) * 3,
-            out_specs=P(BLOCKS_AXIS), check_vma=False))
-
-        def dec_local(recv_l, pu_l, po_l, p0_l, dn_l, di_l, se_l, sh_l,
-                      dq_l, ra_l):
-            planes = bias_planes(recv_l, comp_rows)
-            decoded = decode_blocks_flat(
-                planes, pu_l[0], po_l[0], p0_l[0], se_l[0], sh_l[0], None,
-                dq_l[0], ra_l[0], dn_l[0], di_l[0],
-                comp_rows=comp_rows, out_rows=NROWS, interpret=True)
-            return decoded.reshape(recv_l.shape[0], BLOCK)
-
-        dec = jax.jit(jax.shard_map(
-            dec_local, mesh=mesh, in_specs=(P(BLOCKS_AXIS),) * 10,
-            out_specs=P(BLOCKS_AXIS), check_vma=False))
-
-        recv_rows = exch(*dev_args[:3])
-        jax.block_until_ready(recv_rows)
-        dec_args = (recv_rows,) + dev_args[3:]
-        jax.block_until_ready(dec(*dec_args))     # compile
-
-        def best_of(fn):
-            b = float("inf")
-            for _ in range(args.reps):
-                t0 = time.perf_counter()
-                jax.block_until_ready(fn())
-                b = min(b, time.perf_counter() - t0)
-            return round(b * 1e3, 2)
-
-        result["exchange_ms"] = best_of(lambda: exch(*dev_args[:3]))
-        result["decode_ms"] = best_of(lambda: dec(*dec_args))
-
-    print(json.dumps(result))
+    print(json.dumps(dict(
+        platform="cpu", processes=pc, devices=d, blocks=nblocks,
+        cpu_step_ms=best * 1e3, cpu_blocks_per_s=nblocks / best,
+        verified_blocks=checked)))
     return 0
 
 
 def launch(args) -> int:
     """Spawn the workers, then run the 1-process baseline and compute
-    scaling efficiency; writes the artifact."""
+    weak-scaling efficiency; writes the artifact."""
     ncores = os.cpu_count() or 1
     per_proc_cores = max(1, ncores // args.launch)
 
     def pin(pid):
-        """taskset prefix giving each process a disjoint core set, so
-        the scaling measurement is not fighting core oversubscription
-        (each XLA CPU runtime otherwise spawns threads for EVERY core;
-        with N processes that is N-fold oversubscription and the
-        efficiency number measures the scheduler, not the step)."""
+        """taskset prefix giving each process a disjoint core set, so the
+        measurement is not fighting core oversubscription (each XLA CPU
+        runtime otherwise spawns threads for EVERY core)."""
         if not args.pin_cores:
             return []
         lo = pid * per_proc_cores
         return ["taskset", "-c", f"{lo}-{lo + per_proc_cores - 1}"]
 
-    def run_multi(port):
-        procs = []
-        for pid in range(args.launch):
-            cmd = pin(pid) + [
-                sys.executable, "-m", "bitar_tpu.cli.multihost_bench",
-                "--processes", str(args.launch), "--process-id", str(pid),
-                "--coordinator", f"localhost:{port}",
-                "--devices-per-process", str(args.devices_per_process),
-                "--blocks", str(args.blocks), "--reps", str(args.reps),
-                "--step", args.step,
-                "--skew-bucket-log", str(args.skew_bucket_log)] + (
-                    ["--phases"] if args.phases else [])
-            procs.append(subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                env=dict(os.environ),
-                cwd=os.path.dirname(os.path.dirname(os.path.dirname(
-                    os.path.abspath(__file__))))))
+    def cmd(pid, processes, blocks, port):
+        return pin(pid) + [
+            sys.executable, "-m", "bitar_tpu.cli.multihost_bench",
+            "--processes", str(processes), "--process-id", str(pid),
+            "--coordinator", f"localhost:{port}",
+            "--devices-per-process", str(args.devices_per_process),
+            "--blocks", str(blocks), "--reps", str(args.reps),
+            "--skew-bucket-log", str(args.skew_bucket_log)]
+
+    def run(cmds):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, cwd=REPO)
+                 for c in cmds]
         outs = []
         for pid, p in enumerate(procs):
-            so, se_ = p.communicate(timeout=args.timeout)
+            so, se = p.communicate(timeout=args.timeout)
             if p.returncode != 0:
-                print(se_.decode()[-2000:], file=sys.stderr)
+                print(se.decode()[-2000:], file=sys.stderr)
                 raise SystemExit(f"worker {pid} failed rc={p.returncode}")
             outs.append(json.loads(so.decode().strip().splitlines()[-1]))
         return outs[0]
 
-    # 1-process WEAK-SCALING baseline: same per-process device count,
-    # same per-process core budget (pinning), and blocks/N so every
-    # device in BOTH arms runs the identical per-device grid shape —
-    # otherwise interpret-mode grid-size nonlinearity pushes efficiency
-    # past 1.0 and the metric can't see regressions (round-3 verdict).
+    # Baseline: same per-process device count and core budget, blocks/N,
+    # so every device in BOTH arms runs the identical per-device shape.
     base_blocks = max(args.devices_per_process, args.blocks // args.launch)
-
-    def run_single():
-        base_cmd = pin(0) + [
-            sys.executable, "-m", "bitar_tpu.cli.multihost_bench",
-            "--processes", "1", "--process-id", "0",
-            "--devices-per-process", str(args.devices_per_process),
-            "--blocks", str(base_blocks), "--reps", str(args.reps),
-            "--step", args.step,
-            "--skew-bucket-log", str(args.skew_bucket_log)] + (
-                ["--phases"] if args.phases else [])
-        bp = subprocess.run(
-            base_cmd, capture_output=True, timeout=args.timeout,
-            cwd=os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))))
-        if bp.returncode != 0:
-            print(bp.stderr.decode()[-2000:], file=sys.stderr)
-            raise SystemExit("baseline worker failed")
-        return json.loads(bp.stdout.decode().strip().splitlines()[-1])
-
-    def run_concurrent():
-        # Concurrent-INDEPENDENT baseline: N 1-process workers running
-        # simultaneously (no jax.distributed, disjoint pinned cores, same
-        # per-process work).  Any slowdown vs the solo baseline is
-        # MACHINE contention (shared DRAM bandwidth under N interpret-
-        # mode decoders) — not the distributed runtime.
-        cprocs = []
-        for pid in range(args.launch):
-            ccmd = pin(pid) + [
-                sys.executable, "-m", "bitar_tpu.cli.multihost_bench",
-                "--processes", "1", "--process-id", "0",
-                "--devices-per-process", str(args.devices_per_process),
-                "--blocks", str(base_blocks), "--reps", str(args.reps),
-                "--step", args.step,
-                "--skew-bucket-log", str(args.skew_bucket_log)]
-            cprocs.append(subprocess.Popen(
-                ccmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                cwd=os.path.dirname(os.path.dirname(os.path.dirname(
-                    os.path.abspath(__file__))))))
-        crs = []
-        for pid, p in enumerate(cprocs):
-            so, se_ = p.communicate(timeout=args.timeout)
-            if p.returncode != 0:
-                print(se_.decode()[-2000:], file=sys.stderr)
-                raise SystemExit(f"concurrent baseline {pid} failed")
-            crs.append(json.loads(so.decode().strip().splitlines()[-1]))
-        return dict(
-            step_ms=[r["step_ms"] for r in crs],
-            blocks_per_s=round(sum(r["blocks_per_s"] for r in crs), 1))
-
-    # Interleaved rounds: this VM's timing noise is +-15% per arm (host
-    # steal), so each arm runs `--rounds` times alternating and the
-    # artifact keeps the per-arm MIN (noise only adds time), plus the
-    # per-round efficiencies so the spread is visible.
-    multi = base = conc = None
-    round_eff = []
+    multi = base = None
     for r in range(max(1, args.rounds)):
-        m = run_multi(args.port + r)
-        b = run_single()
-        round_eff.append(round(
-            (m["blocks_per_s"] / b["blocks_per_s"]) / args.launch, 3))
-        if multi is None or m["step_ms"] < multi["step_ms"]:
+        m = run([cmd(pid, args.launch, args.blocks, args.port + r)
+                 for pid in range(args.launch)])
+        b = run([cmd(0, 1, base_blocks, args.port + r)])
+        if multi is None or m["cpu_step_ms"] < multi["cpu_step_ms"]:
             multi = m
-        if base is None or b["step_ms"] < base["step_ms"]:
+        if base is None or b["cpu_step_ms"] < base["cpu_step_ms"]:
             base = b
-        if args.phases:
-            c = run_concurrent()
-            if conc is None or sum(c["step_ms"]) < sum(conc["step_ms"]):
-                conc = c
 
-    efficiency = (multi["blocks_per_s"] / base["blocks_per_s"]) / args.launch
-    phases = None
-    if args.phases and "exchange_ms" in multi and "exchange_ms" in base:
-        phases = dict(
-            multi_exchange_ms=multi["exchange_ms"],
-            multi_decode_ms=multi["decode_ms"],
-            single_exchange_ms=base["exchange_ms"],
-            single_decode_ms=base["decode_ms"],
-            exchange_ratio=round(multi["exchange_ms"]
-                                 / max(base["exchange_ms"], 1e-9), 3),
-            decode_ratio=round(multi["decode_ms"]
-                               / max(base["decode_ms"], 1e-9), 3))
     artifact = dict(
         config="BASELINE config 5: multi-process fused shuffle+decode",
-        multi=multi, single=base,
-        scaling_efficiency=round(efficiency, 3),
-        round_efficiencies=round_eff,
-        scaling_mode="weak (baseline runs blocks/N on a 1/N mesh: "
-                     "identical per-device grid shapes in both arms)",
-        note=("virtual CPU devices; interpret-mode kernels — the number "
-              "exercises the full jax.distributed + global-mesh + "
-              "cross-process collective path, not TPU silicon"))
-    if phases is not None:
-        artifact["phase_attribution"] = phases
-    if conc is not None:
-        artifact["concurrent_independent"] = conc
-        artifact["efficiency_vs_concurrent"] = round(
-            multi["blocks_per_s"] / max(conc["blocks_per_s"], 1e-9), 3)
+        platform="cpu", multi=multi, single=base,
+        cpu_scaling_efficiency=(multi["cpu_blocks_per_s"]
+                                / base["cpu_blocks_per_s"]) / args.launch,
+        note=("virtual CPU devices: exercises jax.distributed + the global "
+              "mesh + cross-process collectives; not a GPU measurement"))
     blob = json.dumps(artifact, indent=1)
     print(blob)
     if args.out:
@@ -405,23 +229,13 @@ def main(argv=None) -> int:
     p.add_argument("--devices-per-process", type=int, default=4)
     p.add_argument("--blocks", type=int, default=32)
     p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--step", choices=["flat", "ring-flat"],
-                   default="flat",
-                   help="flat = the engine's production decoder (dense "
-                        "per-byte wire, one all_to_all); ring-flat = same "
-                        "decoder under the per-peer ppermute ring")
     p.add_argument("--rounds", type=int, default=1,
-                   help="interleave N (multi, single[, concurrent]) "
-                        "measurement rounds; artifact keeps per-arm mins "
-                        "and the per-round efficiency spread")
+                   help="repeat the (multi, single) pair N times; the "
+                        "artifact keeps each arm's fastest run")
     p.add_argument("--timeout", type=int, default=600)
     p.add_argument("--pin-cores", action="store_true",
                    help="give each worker (and the baseline) a disjoint, "
                         "equal core set via taskset")
-    p.add_argument("--phases", action="store_true",
-                   help="also time exchange-only and decode-only phase "
-                        "programs (flat step): locates a scaling loss in "
-                        "the cross-process collective vs the decode")
     p.add_argument("--skew-bucket-log", type=int, default=0,
                    help="coarsen LPT shuffle ordering: bucket block sizes "
                         "by log2(size) >> K before the balance sort "

@@ -1,6 +1,6 @@
 """Driver: device discovery and stream topology.
 
-TPU-native analog of ``CompressDriver`` (reference ``src/driver.cc``): a
+The analog of ``CompressDriver`` (reference ``src/driver.cc``): a
 per-process singleton that enumerates accelerator devices and constructs
 engines with a stream->device placement map.
 
@@ -10,7 +10,7 @@ discovery is ``jax.devices()``, the "PCI-id -> device class" dispatch is
 platform -> ``DeviceCapabilities``, and the lcore distribution becomes a
 round-robin assignment of streams to local devices.  Multi-host process
 topology comes from ``jax.process_index``/``process_count`` (populated by
-``jax.distributed.initialize`` on pods).
+``jax.distributed.initialize`` in multi-process jobs).
 """
 
 from __future__ import annotations

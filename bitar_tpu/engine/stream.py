@@ -1,6 +1,6 @@
 """Streams: the async dispatch layer.
 
-TPU-native analog of the reference's header-only async layer
+The analog of the reference's header-only async layer
 (``src/include/util.h:45-236``): ``CompressParam``/``DecompressParam``
 bundles, ``CompressAsync``/``DecompressAsync`` launching the *synchronous*
 device call on the worker that owns a queue pair, a result callback, and a
@@ -16,7 +16,7 @@ join.  Semantics preserved:
 
 Each stream owns one worker thread (the "lcore"); the device work inside
 is itself parallel (native codec threads + JAX async dispatch), so streams
-overlap host codec CPU, PCIe staging, and TPU kernel time across
+overlap host codec CPU, PCIe staging, and device decode time across
 devices/engines.
 """
 

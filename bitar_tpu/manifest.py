@@ -3,12 +3,12 @@
 The reference has an *implicit* framing contract: the sizes and order of the
 returned ``BufferVector`` are the only metadata; decompression assumes every
 segment expands to exactly ``decompressed_seg_size`` bytes except the last
-(reference ``src/device.cc:241-318``, survey §3.2).  The TPU build makes
+(reference ``src/device.cc:241-318``, survey §3.2).  This engine makes
 that contract explicit and device-friendly: a structure-of-arrays manifest
 (int32/uint32 numpy columns) that
 
-* is itself a valid device array set (scalar-prefetch input to Pallas
-  kernels and shard_map programs),
+* is itself a valid device array set (input to jitted and shard_map
+  programs),
 * serializes to a tiny container header so compressed data survives a file
   round-trip, and
 * carries optional per-block checksums (reference ``config.h:169-177``).

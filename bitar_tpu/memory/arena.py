@@ -1,6 +1,6 @@
-"""HBM slot arena: preallocated compressed-output pool with take/put/recycle.
+"""Device-memory slot arena: preallocated compressed-output pool with take/put/recycle.
 
-TPU-native redesign of the reference's two memory engines:
+A redesign of the reference's two memory engines:
 
 * ``DeviceMemory`` (reference ``src/memory.cc:121-235``): a mutex-guarded
   pool of preallocated fixed-size memzones used as compression destination

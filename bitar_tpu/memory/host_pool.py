@@ -6,8 +6,8 @@ The analog of the reference's Arrow MemoryPool backends over DPDK memory
 ``memory_pool.cc:321-350``), allocation statistics, and debug-build
 boundary poisoning (``memory_pool.cc:190-194``).
 
-On a TPU host the DMA-able-memory distinction collapses: numpy buffers are
-staged to HBM by the runtime regardless.  What survives is (a) *pooling* —
+Under JAX the DMA-able-memory distinction collapses: numpy buffers are
+staged to device memory by the runtime regardless.  What survives is (a) *pooling* —
 reusing page-aligned staging buffers across bursts instead of churning the
 allocator, and (b) *accounting + poisoning* for debug.
 """

@@ -104,4 +104,4 @@ extern "C" void bt_batch_decompress(int codec, const int32_t* codec_ids,
            dst, dst_off, dst_len, status);
 }
 
-extern "C" int bt_abi_version(void) { return 6; }
+extern "C" int bt_abi_version(void) { return 7; }

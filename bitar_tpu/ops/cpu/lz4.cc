@@ -1,8 +1,8 @@
 // LZ4 block-format codec, written from scratch against the public format
 // spec (https://github.com/lz4/lz4/blob/dev/doc/lz4_Block_format.md).
 //
-// Role in the TPU framework: host-side oracle + ingest path + sequence-table
-// extractor for the Pallas decode kernels.  The reference accesses a
+// Role in the engine: host-side oracle + ingest path + sequence-table
+// extractor for the device decode executor.  The reference accesses a
 // hardware DEFLATE engine instead (bitar src/device.cc); this library is the
 // "software PMD" the reference never had (survey §4).
 
@@ -92,8 +92,8 @@ inline int EmitSequence(uint8_t* dst, int cap, int d, const uint8_t* lits,
 // min_match: smallest match length the encoder emits (>= kMinMatch).
 // Wire-compatible with any LZ4 decoder; larger values skip marginal
 // matches (4-byte hash hits on barely-compressible data cost ~1 byte of
-// ratio each but a whole scheduled pass on the device decoder — see
-// plan.cc Densify).
+// ratio each but add one sequence-table row per match for the device
+// decoder).
 extern "C" int bt_lz4_compress_mm(const uint8_t* src, int src_len,
                                   uint8_t* dst, int dst_cap, int min_match) {
   if (src_len < 0 || dst_cap < 0 || (src == nullptr && src_len > 0) ||
@@ -149,64 +149,6 @@ extern "C" int bt_lz4_compress_mm(const uint8_t* src, int src_len,
 extern "C" int bt_lz4_compress(const uint8_t* src, int src_len, uint8_t* dst,
                                int dst_cap) {
   return bt_lz4_compress_mm(src, src_len, dst, dst_cap, kMinMatch);
-}
-
-thread_local int bt_emit_min_match = 4;
-
-// Minimum emitted match length for the hint-driven emitters (thread
-// local, like bt_set_split_limit; the batch/direct compressors take it
-// as an explicit parameter instead).
-extern "C" void bt_set_emit_min_match(int v) {
-  bt_emit_min_match = v < 4 ? 4 : v;
-}
-
-extern "C" int bt_lz4_emit_sequences(const uint8_t* src, int src_len,
-                                     const int32_t* mlen,
-                                     const int32_t* off_idx,
-                                     const int32_t* offsets, int noffsets,
-                                     uint8_t* dst, int dst_cap) {
-  // Greedy LZ4 emission from accelerator match hints (see
-  // ops/pallas/lz4_match.py).  The hints are TRUSTED ONLY as "a match of
-  // >= 4 bytes likely starts here at this offset": every match is
-  // re-verified and extended by direct comparison, so kernel edge effects
-  // (padding runs, roll wrap-around) can never corrupt the stream, and
-  // matches longer than the kernel's cap are fully captured.
-  // Direct-offset mode: offsets == NULL means off_idx[i] IS the match
-  // offset for position i (arbitrary-offset device matchers emit
-  // per-position offsets, not indices into a candidate table).
-  if (src_len < 0 || dst_cap < 0 || (src == nullptr && src_len > 0) ||
-      dst == nullptr || (offsets != nullptr && noffsets <= 0)) {
-    return BT_ERR_INVALID;
-  }
-  const int mflimit = src_len - kMfLimitDist;
-  const int matchlimit = src_len - kLastLiterals;
-  int i = 0;
-  int anchor = 0;
-  int d = 0;
-  while (i < mflimit) {
-    const int32_t hint = mlen[i];
-    if (hint >= kMinMatch) {
-      const int32_t idx = off_idx[i];
-      if (offsets == nullptr || (idx >= 0 && idx < noffsets)) {
-        const int32_t off = offsets == nullptr ? idx : offsets[idx];
-        if (off >= 1 && off <= i && off <= 65535) {
-          int ml = 0;
-          while (i + ml < matchlimit && src[i + ml] == src[i - off + ml]) ++ml;
-          if (ml >= kMinMatch && ml >= bt_emit_min_match) {
-            d = EmitSequence(dst, dst_cap, d, src + anchor, i - anchor, off,
-                             ml);
-            if (d < 0) return d;
-            i += ml;
-            anchor = i;
-            continue;
-          }
-        }
-      }
-    }
-    ++i;
-  }
-  d = EmitSequence(dst, dst_cap, d, src + anchor, src_len - anchor, 0, -1);
-  return d;
 }
 
 extern "C" int bt_lz4_decompress(const uint8_t* src, int src_len, uint8_t* dst,

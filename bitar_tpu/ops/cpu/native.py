@@ -2,15 +2,17 @@
 
 The reference binds to native code through DPDK's C ABI; here the framework
 owns the native layer and binds via ctypes (pybind11 is not available in the
-environment).  The library is built once into ``ops/cpu/build`` with
-cmake+ninja when present, else a direct g++ invocation.
+environment).  The library is built with g++ into ``ops/cpu/build`` under a
+name keyed by a hash of its sources, so a library copied in with a tree
+whose sources differ is never loaded: a changed source means a new name
+and a fresh build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
-import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -21,41 +23,40 @@ from ...status import Status, StatusError
 
 _SRC_DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _SRC_DIR / "build"
-_LIB_PATH = _BUILD_DIR / "libbitar_host.so"
-_SOURCES = ["lz4.cc", "snappy.cc", "zstd.cc", "batch.cc", "plan.cc"]
-_ABI_VERSION = 6
-DENSE_PLANES = 64     # row_a anchor planes per block: pass ids 1..63 in the
-                      # dq wire's 6-bit field + one spare (plan.cc kDenseMax)
+_SOURCES = ["lz4.cc", "snappy.cc", "zstd.cc", "batch.cc"]
+_HEADERS = ["bitar_host.h"]
+_ABI_VERSION = 7
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_PLAN_TLS = threading.local()
 
 
-def _needs_rebuild() -> bool:
-    if not _LIB_PATH.exists():
-        return True
-    lib_mtime = _LIB_PATH.stat().st_mtime
-    for src in _SOURCES + ["bitar_host.h"]:
-        if (_SRC_DIR / src).stat().st_mtime > lib_mtime:
-            return True
-    return False
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_SRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
 
 
-def _build() -> None:
+def library_path() -> Path:
+    """Where the library built from the current sources lives."""
+    return _BUILD_DIR / f"libbitar_host-{_source_hash()}.so"
+
+
+def _build(dest: Path) -> None:
+    """Compile the sources into ``dest`` (atomically: concurrent builders
+    each write their own temporary file and the last rename wins)."""
     _BUILD_DIR.mkdir(exist_ok=True)
-    if shutil.which("cmake") and shutil.which("ninja"):
-        subprocess.run(
-            ["cmake", "-G", "Ninja", "-DCMAKE_BUILD_TYPE=Release", ".."],
-            cwd=_BUILD_DIR, check=True, capture_output=True)
-        subprocess.run(["ninja"], cwd=_BUILD_DIR, check=True, capture_output=True)
-    else:
-        cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
-               "-Wall", "-o", str(_LIB_PATH)]
-        cmd += [str(_SRC_DIR / s) for s in _SOURCES]
-        subprocess.run(cmd, check=True, capture_output=True)
-    if not _LIB_PATH.exists():
-        raise StatusError(Status.IOError(f"native build produced no {_LIB_PATH}"))
+    tmp = dest.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+           "-Wall", "-o", str(tmp)]
+    cmd += [str(_SRC_DIR / s) for s in _SOURCES]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise StatusError(Status.IOError(
+            f"native build failed: {r.stderr[-2000:]}"))
+    os.replace(tmp, dest)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -86,130 +87,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bt_batch_decompress.argtypes = [
         ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int,
         u8p, i64p, i32p, u8p, i64p, i32p, i32p]
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    lib.bt_plan_batch.restype = None
-    lib.bt_plan_batch.argtypes = [
-        ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int,
-        u8p, i64p, i32p, i32p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
-        i16p, i32p, i32p, i32p, i32p,
-        u8p, ctypes.c_int64, i32p,
-        i16p, i32p, i32p]
-    lib.bt_plan_batch_begin.restype = ctypes.c_void_p
-    lib.bt_plan_batch_begin.argtypes = [
-        ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int,
-        u8p, i64p, i32p, i32p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
-        i32p, i32p, i32p,
-        u8p, ctypes.c_int64, i32p,
-        i16p, i32p, i32p]
-    lib.bt_plan_batch_pack.restype = None
-    lib.bt_plan_batch_pack.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, i64p, i16p, i32p]
-    lib.bt_plan_batch_abort.restype = None
-    lib.bt_plan_batch_abort.argtypes = [ctypes.c_void_p]
-    lib.bt_plan_rows.restype = ctypes.c_int
-    lib.bt_plan_rows.argtypes = [ctypes.c_int] + [i32p] * 5 + \
-        [ctypes.c_int] * 3 + [i32p] * 5
-    lib.bt_plan_block.restype = ctypes.c_int
-    lib.bt_plan_block.argtypes = [ctypes.c_int, u8p] + [ctypes.c_int] * 4 + [i32p] * 5
-    lib.bt_lz4_emit_sequences.restype = ctypes.c_int
-    lib.bt_lz4_emit_sequences.argtypes = [u8p, ctypes.c_int, i32p, i32p, i32p,
-                                          ctypes.c_int, u8p, ctypes.c_int]
-    lib.bt_snappy_emit_sequences.restype = ctypes.c_int
-    lib.bt_snappy_emit_sequences.argtypes = [u8p, ctypes.c_int, i32p, i32p,
-                                             i32p, ctypes.c_int, u8p,
-                                             ctypes.c_int]
     lib.bt_zstd_parse.restype = ctypes.c_int
     lib.bt_zstd_parse.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                   u8p, ctypes.c_int, i32p,
                                   i32p, i32p, i32p, i32p, i32p]
-    lib.bt_set_split_limit.restype = None
-    lib.bt_set_split_limit.argtypes = [ctypes.c_int]
-    lib.bt_set_emit_min_match.restype = None
-    lib.bt_set_emit_min_match.argtypes = [ctypes.c_int]
-    lib.bt_plan_frags.restype = ctypes.c_int
-    lib.bt_plan_frags.argtypes = [ctypes.c_int, u8p, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  i32p, i32p, i32p, i32p, i32p]
     lib.bt_abi_version.restype = ctypes.c_int
     lib.bt_abi_version.argtypes = []
     return lib
-
-
-def set_split_limit(v: int) -> None:
-    """Tune the planner's comp-resolution split limit."""
-    load().bt_set_split_limit(int(v))
-
-
-def set_emit_min_match(v: int) -> None:
-    """Minimum match length the hint-driven emitters accept (>= 4).
-
-    Thread-local (applies to the calling thread's subsequent
-    ``*_emit_sequences`` calls); the batch compressors take
-    ``min_match`` explicitly instead.
-    """
-    load().bt_set_emit_min_match(int(v))
-
-
-def plan_frags(data, out_len: int, codec: str = "lz4",
-               split_limit: int = 2) -> dict[str, np.ndarray]:
-    """Debug/analysis: the planner's fragment list for one block.
-
-    Returns dict of int32 arrays (dst, len, shift, space, aux); space is
-    0 comp / 1 out / 2 row-fill (see plan.cc).  For offline scheduler
-    prototyping only — not a production path.
-    """
-    src = _as_u8(data)
-    cap = out_len + 64
-    cols = {k: np.zeros(cap, np.int32) for k in
-            ("dst", "len", "shift", "space", "aux")}
-    n = _check(load().bt_plan_frags(
-        _CODEC_INT[codec], _u8ptr(src), len(src), out_len, split_limit, cap,
-        *(_i32ptr(cols[k]) for k in ("dst", "len", "shift", "space", "aux"))),
-        "plan_frags")
-    if n > cap:
-        raise StatusError(
-            Status.CapacityError(f"fragment count {n} > cap {cap}"))
-    return {k: v[:n] for k, v in cols.items()}
-
-
-def lz4_emit_sequences(data, mlen: np.ndarray, off_idx: np.ndarray,
-                       offsets, dst_cap: int | None = None) -> np.ndarray:
-    """Emit an LZ4 block from TPU match-kernel hints (verified on emit)."""
-    return _emit_sequences("lz4", data, mlen, off_idx, offsets, dst_cap)
-
-
-def snappy_emit_sequences(data, mlen: np.ndarray, off_idx: np.ndarray,
-                          offsets, dst_cap: int | None = None) -> np.ndarray:
-    """Emit a Snappy block from the same codec-agnostic match hints."""
-    return _emit_sequences("snappy", data, mlen, off_idx, offsets, dst_cap)
-
-
-def _emit_sequences(codec: str, data, mlen, off_idx, offsets,
-                    dst_cap: int | None) -> np.ndarray:
-    """``offsets=None`` selects direct mode: off_idx[i] IS the offset
-    (arbitrary-offset matchers); otherwise off_idx indexes offsets."""
-    src = _as_u8(data)
-    n = len(src)
-    if dst_cap is None:
-        dst_cap = n + n // 255 + 16
-    dst = np.empty(dst_cap, dtype=np.uint8)
-    mlen = np.ascontiguousarray(mlen[:n], dtype=np.int32)
-    off_idx = np.ascontiguousarray(off_idx[:n], dtype=np.int32)
-    if offsets is None:
-        offs_ptr, noffs = None, 0
-    else:
-        offs = np.ascontiguousarray(offsets, dtype=np.int32)
-        offs_ptr, noffs = _i32ptr(offs), len(offs)
-    fn = (load().bt_lz4_emit_sequences if codec == "lz4"
-          else load().bt_snappy_emit_sequences)
-    rc = _check(fn(
-        _u8ptr(src), n, _i32ptr(mlen), _i32ptr(off_idx), offs_ptr,
-        noffs, _u8ptr(dst), dst_cap), f"{codec}_emit_sequences")
-    return dst[:rc]
 
 
 def load() -> ctypes.CDLL:
@@ -218,9 +102,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if _needs_rebuild():
-            _build()
-        lib = _bind(ctypes.CDLL(str(_LIB_PATH)))
+        path = library_path()
+        if not path.exists():
+            _build(path)
+        lib = _bind(ctypes.CDLL(str(path)))
         got = lib.bt_abi_version()
         if got != _ABI_VERSION:
             raise StatusError(Status.IOError(
@@ -344,11 +229,12 @@ def zstd_parse(data, max_seq: int | None = None, lit_cap: int | None = None):
         _i32ptr(cols["lit_ptr"]), _i32ptr(cols["lit_len"]),
         _i32ptr(cols["off"]), _i32ptr(cols["mlen"]),
         _i32ptr(cols["out_pos"])), "zstd_parse")
-    return {k: v[:rc] for k, v in cols.items()}, lit_buf[:int(lit_used[0])]
+    return ({k: v[:rc].copy() for k, v in cols.items()},
+            lit_buf[:int(lit_used[0])].copy())
 
 
 def parse_sequences(data, codec: str = "lz4", max_seq: int | None = None):
-    """Extract the SoA sequence table feeding the TPU decode kernels.
+    """Extract the SoA sequence table feeding the device decode executor.
 
     Returns dict of int32 arrays (lit_ptr, lit_len, off, mlen, out_pos) of
     length nseq.
@@ -363,226 +249,10 @@ def parse_sequences(data, codec: str = "lz4", max_seq: int | None = None):
                    _i32ptr(cols["lit_ptr"]), _i32ptr(cols["lit_len"]),
                    _i32ptr(cols["off"]), _i32ptr(cols["mlen"]),
                    _i32ptr(cols["out_pos"])), f"{codec}_parse")
-    return {k: v[:rc] for k, v in cols.items()}
-
-
-def plan_block(data, out_len: int, nrows: int, max_passes: int = 32,
-               codec: str = "lz4"):
-    """Build the scheduled decode plan for one compressed block.
-
-    Returns (P, p0, cols) where ``cols`` holds r_dstart/r_dend/r_shift of
-    shape [max_passes, nrows] int32; passes [0, p0) read the comp plane and
-    [p0, P) read the output plane.  Returns (None, None, None) when the
-    block exceeds the pass budget (caller falls back to the scalar kernel).
-    """
-    src = _as_u8(data)
-    cols = {k: np.zeros((max_passes, nrows), dtype=np.int32)
-            for k in ("r_dstart", "r_dend", "r_shift")}
-    pass_space = np.zeros(max_passes, dtype=np.int32)
-    p0 = np.zeros(1, dtype=np.int32)
-    rc = load().bt_plan_block(
-        _CODEC_INT[codec], _u8ptr(src), len(src), out_len, nrows, max_passes,
-        _i32ptr(cols["r_dstart"]), _i32ptr(cols["r_dend"]),
-        _i32ptr(cols["r_shift"]), _i32ptr(pass_space), _i32ptr(p0))
-    if rc == -6:  # CAPACITY: pass budget exceeded
-        return None, None, None
-    _check(rc, "plan_block")
-    return rc, int(p0[0]), cols
+    return {k: v[:rc].copy() for k, v in cols.items()}
 
 
 _CODEC_INT = {"lz4": 0, "snappy": 1, "zstd": 2, "raw": 3}
-
-
-def plan_batch_flat(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
-                    out_len: np.ndarray, codec_ids: np.ndarray, nrows: int,
-                    max_passes: int, cb: int, split_limit: int = 128,
-                    nthreads: int = 0, lit_out: np.ndarray | None = None,
-                    lit_stride: int = 0, band_rows: int = 0,
-                    band_tile: int = 0,
-                    dq_buf: np.ndarray | None = None,
-                    ra_buf: np.ndarray | None = None):
-    """Batched parse+plan+pack into the flat decode-kernel wire.
-
-    Returns (se [n, max_passes, nrows] int16, shift int32, p_used [n],
-    p0 [n], status [n], lit_used [n], dq [n, nrows, 128] int16,
-    row_a [n, DENSE_PLANES, nrows] int32, dense [n] int32 — the dense
-    comp-pass planes, see plan.cc Planner::Densify); blocks with
-    status != 0 have no plan (fall back).  ``lit_out`` (flat
-    [n * lit_stride] uint8) receives
-    zstd blocks' entropy-decoded literal planes; lit_used[i] > 0 marks a
-    block whose plan sources the LITERAL plane instead of the compressed
-    bytes.  The per-(pass,row) cell format matches ``lz4_decode_flat``.
-
-    ``band_rows`` > 0 schedules under the banded-gather constraint: every
-    (pass, band_tile-row output tile)'s source rows fit one band_rows-row
-    window with 8-aligned base, so the device kernel runs ONE static-K
-    gather matmul per pass instead of full-K chunks.  Costs extra passes
-    when fragments' sources spread; 0 = unconstrained.  ``band_tile``
-    must match the kernel's M-tile (mt_max); 0 defaults to 1024.
-    """
-    n = int(src_len.shape[0])
-    if nthreads <= 0:
-        nthreads = os.cpu_count() or 1
-    # The per-block plan scratch ([n, max_passes, nrows] int16+int32,
-    # ~240 MB at 256x160x1024) is reused across calls per thread: fresh
-    # np.empty pages fault-in at first touch, which measured 10x the
-    # planner's own time.  Thread-local so concurrent planners can't
-    # alias; callers compact to the flat wire before the next call.
-    cache = getattr(_PLAN_TLS, "bufs", None)
-    if cache is None or cache[0].shape != (n, max_passes, nrows):
-        cache = (np.empty((n, max_passes, nrows), np.int16),
-                 np.empty((n, max_passes, nrows), np.int32))
-        _PLAN_TLS.bufs = cache
-    se, shift = cache
-    p_used = np.zeros(n, np.int32)
-    p0 = np.zeros(n, np.int32)
-    status = np.zeros(n, np.int32)
-    lit_used = np.zeros(n, np.int32)
-    # Callers may pass reusable ZEROED dense-plane buffers (the planner
-    # writes only covered bytes): fresh 0.5 GB allocations per call cost
-    # seconds of first-touch page faults on small VMs.
-    if dq_buf is not None:
-        assert dq_buf.shape == (n, nrows, 128) and dq_buf.dtype == np.int16
-        dq = dq_buf
-    else:
-        dq = np.zeros((n, nrows, 128), np.int16)
-    if ra_buf is not None:
-        assert ra_buf.shape == (n, DENSE_PLANES, nrows) and \
-            ra_buf.dtype == np.int32
-        row_a = ra_buf
-    else:
-        row_a = np.zeros((n, DENSE_PLANES, nrows), np.int32)
-    dense = np.zeros(n, np.int32)
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    load().bt_plan_batch(
-        0, _i32ptr(np.ascontiguousarray(codec_ids, np.int32)), nthreads, n,
-        _u8ptr(src), _i64ptr(np.ascontiguousarray(src_off, np.int64)),
-        _i32ptr(np.ascontiguousarray(src_len, np.int32)),
-        _i32ptr(np.ascontiguousarray(out_len, np.int32)),
-        nrows, max_passes, split_limit, cb, band_rows, band_tile,
-        se.ctypes.data_as(i16p), _i32ptr(shift), _i32ptr(p_used),
-        _i32ptr(p0), _i32ptr(status),
-        _u8ptr(lit_out) if lit_out is not None else None,
-        lit_stride, _i32ptr(lit_used),
-        dq.ctypes.data_as(i16p), _i32ptr(row_a), _i32ptr(dense))
-    return se, shift, p_used, p0, status, lit_used, dq, row_a, dense
-
-
-def plan_batch_begin(src: np.ndarray, src_off: np.ndarray,
-                     src_len: np.ndarray, out_len: np.ndarray,
-                     codec_ids: np.ndarray, nrows: int, max_passes: int,
-                     cb: int, split_limit: int = 128, nthreads: int = 0,
-                     lit_out: np.ndarray | None = None, lit_stride: int = 0,
-                     band_rows: int = 0, band_tile: int = 0,
-                     dq_buf: np.ndarray | None = None,
-                     ra_buf: np.ndarray | None = None):
-    """Phase 1 of the compact two-phase planner.
-
-    Plans every block in parallel into per-block compact buffers held by
-    a native context (memory scales with the actual plan, not
-    n x max_passes — the dense scratch of :func:`plan_batch_flat`
-    measured 10x the planner's own time in page faults at 256-block
-    batches).  Returns (ctx, p_used, p0, status, lit_used); pass ctx to
-    :func:`plan_batch_pack` once pass offsets are known, or
-    :func:`plan_batch_abort` to discard.  Other args as
-    :func:`plan_batch_flat`.
-    """
-    n = int(src_len.shape[0])
-    if nthreads <= 0:
-        nthreads = os.cpu_count() or 1
-    p_used = np.zeros(n, np.int32)
-    p0 = np.zeros(n, np.int32)
-    status = np.zeros(n, np.int32)
-    lit_used = np.zeros(n, np.int32)
-    # Callers may pass reusable ZEROED dense-plane buffers (the planner
-    # writes only covered bytes): fresh 0.5 GB allocations per call cost
-    # seconds of first-touch page faults on small VMs.
-    if dq_buf is not None:
-        assert dq_buf.shape == (n, nrows, 128) and dq_buf.dtype == np.int16
-        dq = dq_buf
-    else:
-        dq = np.zeros((n, nrows, 128), np.int16)
-    if ra_buf is not None:
-        assert ra_buf.shape == (n, DENSE_PLANES, nrows) and \
-            ra_buf.dtype == np.int32
-        row_a = ra_buf
-    else:
-        row_a = np.zeros((n, DENSE_PLANES, nrows), np.int32)
-    dense = np.zeros(n, np.int32)
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    ctx = load().bt_plan_batch_begin(
-        0, _i32ptr(np.ascontiguousarray(codec_ids, np.int32)), nthreads, n,
-        _u8ptr(src), _i64ptr(np.ascontiguousarray(src_off, np.int64)),
-        _i32ptr(np.ascontiguousarray(src_len, np.int32)),
-        _i32ptr(np.ascontiguousarray(out_len, np.int32)),
-        nrows, max_passes, split_limit, cb, band_rows, band_tile,
-        _i32ptr(p_used), _i32ptr(p0), _i32ptr(status),
-        _u8ptr(lit_out) if lit_out is not None else None,
-        lit_stride, _i32ptr(lit_used),
-        dq.ctypes.data_as(i16p), _i32ptr(row_a), _i32ptr(dense))
-    return ctx, p_used, p0, status, lit_used, dq, row_a, dense
-
-
-def plan_batch_pack(ctx, p_off: np.ndarray, se: np.ndarray,
-                    shift: np.ndarray, nthreads: int = 0) -> None:
-    """Phase 2: copy each block's plan rows to pass-row offset
-    ``p_off[i]`` of the flat wire ``se``/``shift`` (whose trailing dims
-    flatten to nrows cells per pass row) and free the context."""
-    if nthreads <= 0:
-        nthreads = os.cpu_count() or 1
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    load().bt_plan_batch_pack(
-        ctx, nthreads, _i64ptr(np.ascontiguousarray(p_off, np.int64)),
-        se.ctypes.data_as(i16p), _i32ptr(shift))
-
-
-def plan_batch_abort(ctx) -> None:
-    """Free a :func:`plan_batch_begin` context without packing."""
-    load().bt_plan_batch_abort(ctx)
-
-
-def plan_dense_pack(sel: np.ndarray, dq_src: np.ndarray,
-                    dq_dst: np.ndarray, ra_src: np.ndarray,
-                    ra_dst: np.ndarray, nrows: int, dcap: int,
-                    nthreads: int = 0,
-                    ndense: np.ndarray | None = None) -> None:
-    """Threaded compaction + re-layout of dense planes (see
-    bt_plan_dense_pack): dq_dst[j] = dq_src[sel[j]]; ra_dst[j] = block
-    sel[j]'s first dcap anchor planes in the kernel's [dcap, 128,
-    tiles] column layout.  ~10x the numpy fancy-index/concat/transpose
-    chain it replaces."""
-    lib = load()
-    if nthreads <= 0:
-        nthreads = os.cpu_count() or 1
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    lib.bt_plan_dense_pack.restype = None
-    lib.bt_plan_dense_pack.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
-        i16p, i16p, ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
-    src_planes = ra_src.shape[1]
-    nd_ptr = (_i32ptr(np.ascontiguousarray(ndense, np.int32))
-              if ndense is not None else None)
-    lib.bt_plan_dense_pack(
-        nthreads, int(sel.shape[0]),
-        _i64ptr(np.ascontiguousarray(sel, np.int64)),
-        dq_src.ctypes.data_as(i16p), dq_dst.ctypes.data_as(i16p),
-        _i32ptr(ra_src), _i32ptr(ra_dst), nrows, src_planes, dcap, nd_ptr)
-
-
-def plan_prof(reset: bool = True) -> dict[str, float]:
-    """Planner phase profile in milliseconds (thread-summed) since the
-    last reset: parse/build/densify/schedule/emit/pack."""
-    lib = load()
-    lib.bt_plan_prof_get.argtypes = [ctypes.POINTER(ctypes.c_int64),
-                                     ctypes.c_int]
-    lib.bt_plan_prof_get.restype = None
-    buf = (ctypes.c_int64 * 8)()
-    lib.bt_plan_prof_get(buf, 1 if reset else 0)
-    keys = ("parse", "build", "densify", "schedule", "emit", "pack",
-            "d_collect", "d_write")
-    return {k: buf[i] / 1e6 for i, k in enumerate(keys)}
 
 
 def batch_run(compress: bool, codec: str, src: np.ndarray, src_off: np.ndarray,

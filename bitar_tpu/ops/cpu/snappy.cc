@@ -145,63 +145,6 @@ extern "C" int bt_snappy_compress(const uint8_t* src, int src_len,
   return bt_snappy_compress_mm(src, src_len, dst, dst_cap, 4);
 }
 
-extern "C" int bt_snappy_emit_sequences(const uint8_t* src, int src_len,
-                                        const int32_t* mlen,
-                                        const int32_t* off_idx,
-                                        const int32_t* offsets, int noffsets,
-                                        uint8_t* dst, int dst_cap) {
-  // Greedy Snappy emission from accelerator match hints (the Pallas
-  // match kernel, ops/pallas/lz4_match.py, is codec-agnostic: hints are
-  // "a match of >= 4 bytes likely starts here at this offset").  As in
-  // bt_lz4_emit_sequences, every hint is re-verified and extended by
-  // direct comparison, so kernel edge effects can never corrupt the
-  // stream.  Reference analog: accelerator-offloaded compression,
-  // src/device.cc:157-238.
-  // Direct-offset mode as in bt_lz4_emit_sequences: offsets == NULL
-  // means off_idx[i] IS the match offset for position i.
-  if (src_len < 0 || dst_cap < 0 || (src == nullptr && src_len > 0) ||
-      dst == nullptr || (offsets != nullptr && noffsets <= 0)) {
-    return BT_ERR_INVALID;
-  }
-  int d = WriteVarint(dst, dst_cap, 0, static_cast<uint32_t>(src_len));
-  if (d < 0) return d;
-  const int limit = src_len - 4;
-  int i = 0;
-  int anchor = 0;
-  while (i <= limit) {
-    const int32_t hint = mlen[i];
-    if (hint >= 4) {
-      const int32_t idx = off_idx[i];
-      if (offsets == nullptr || (idx >= 0 && idx < noffsets)) {
-        const int32_t off = offsets == nullptr ? idx : offsets[idx];
-        if (off >= 1 && off <= i && off <= 65535) {
-          int ml = 0;
-          while (i + ml < src_len && src[i + ml] == src[i - off + ml]) ++ml;
-          if (ml >= 4 && ml >= bt_emit_min_match) {
-            d = EmitLiteral(dst, dst_cap, d, src + anchor, i - anchor);
-            if (d < 0) return d;
-            int rem = ml;
-            while (rem > 64) {
-              const int c = (rem - 64 < 4) ? 60 : 64;
-              d = EmitCopy(dst, dst_cap, d, off, c);
-              if (d < 0) return d;
-              rem -= c;
-            }
-            d = EmitCopy(dst, dst_cap, d, off, rem);
-            if (d < 0) return d;
-            i += ml;
-            anchor = i;
-            continue;
-          }
-        }
-      }
-    }
-    ++i;
-  }
-  d = EmitLiteral(dst, dst_cap, d, src + anchor, src_len - anchor);
-  return d;
-}
-
 extern "C" int bt_snappy_uncompressed_len(const uint8_t* src, int src_len) {
   if (src == nullptr || src_len <= 0) return BT_ERR_INVALID;
   uint32_t v = 0;

@@ -13,12 +13,12 @@
 // (a) materialize output bytes and/or (b) record the LZ77 sequence table
 // in the engine's SoA shape with literal pointers into a caller-provided
 // DECODED-LITERALS buffer — the hook that lets zstd blocks ride the
-// plan-execute TPU kernel with literals sourced from a host-entropy-
-// decoded plane (sequence execution is codec-agnostic).
+// device sequence executor with literals sourced from a host-entropy-
+// decoded stream (sequence execution is codec-agnostic).
 //
 // Reference for capability parity: bitar executes its codec on a foreign
 // engine (DPU DEFLATE, src/device.cc:157-318); this library is the host
-// member of the TPU build's codec set.
+// member of this engine's codec set.
 
 #include "bitar_host.h"
 

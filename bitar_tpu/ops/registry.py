@@ -1,62 +1,20 @@
-"""Codec registry: one implementation record per codec.
+"""Host codec entry points: one batch API over the native library.
 
 The analog of the reference's capability table: the hardware advertises
 DEFLATE via ``rte_compressdev_info`` and the device validates against it
-(``device.cc:353-415``).  Here each codec declares its host (native C++)
-entry points and whether the TPU decode kernel can execute it (i.e. it
-parses to the SoA sequence-table shape).
-
-Zstd is native in BOTH directions (from-scratch RFC 8878 codec in
-``ops/cpu/zstd.cc``, fuzz-validated against the zstandard module): the
-decoder's sequence execution rides the TPU plan-execute kernel with
-literals from a host-entropy-decoded plane, and the encoder (greedy LZ +
-predefined-FSE sequence coding) runs inside the multithreaded C++ batch
-engine like lz4/snappy.
+(``device.cc:353-415``).  Here every codec — LZ4, Snappy, Zstd (the
+from-scratch RFC 8878 codec in ``ops/cpu/zstd.cc``, fuzz-validated against
+the zstandard module) and RAW — runs both ways inside the multithreaded
+C++ batch engine, and every codec except RAW parses to the sequence-table
+shape the device decoder executes (``ops/decode.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 
 from ..config import Codec, compress_bound
-from ..status import Status, StatusError
 from .cpu import native
-
-
-@dataclass(frozen=True)
-class CodecImpl:
-    codec: Codec
-    native_batch: bool       # handled inside bt_batch_* (threads in C++)
-    tpu_decode: bool         # parses to sequence tables for the Pallas kernel
-    parse_name: str | None   # native parse entry ("lz4"/"snappy") or None
-
-
-_REGISTRY: dict[Codec, CodecImpl] = {
-    Codec.LZ4: CodecImpl(Codec.LZ4, native_batch=True, tpu_decode=True,
-                         parse_name="lz4"),
-    Codec.SNAPPY: CodecImpl(Codec.SNAPPY, native_batch=True, tpu_decode=True,
-                            parse_name="snappy"),
-    # Native both ways (from-scratch zstd.cc); TPU-plannable via the
-    # decoded-literals plane.
-    Codec.ZSTD: CodecImpl(Codec.ZSTD, native_batch=True, tpu_decode=True,
-                          parse_name="zstd"),
-    Codec.RAW: CodecImpl(Codec.RAW, native_batch=True, tpu_decode=False,
-                         parse_name=None),
-}
-
-
-def get_impl(codec: Codec) -> CodecImpl:
-    return _REGISTRY[codec]
-
-
-def parse_tables(codec: Codec, blocks: list[np.ndarray]) -> list[dict[str, np.ndarray]]:
-    impl = get_impl(codec)
-    if not impl.tpu_decode:
-        raise StatusError(Status.NotImplemented(
-            f"codec {codec.value} has no TPU decode path"))
-    return [native.parse_sequences(b, impl.parse_name) for b in blocks]
 
 
 # ---------------------------------------------------------------------------

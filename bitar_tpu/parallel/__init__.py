@@ -1,13 +1,9 @@
-"""Multi-chip / multi-host parallel execution layer."""
+"""Multi-device / multi-host parallel execution layer."""
 
 from . import multihost
-from .ring import distributed_step_ring_flat
 from .pipeline import (
-    distributed_step_tables_fallback,
-    distributed_step_flat,
-    prepare_distributed_step_tables_fallback,
-    prepare_flat_wires_for_recv,
-    prepare_ring_flat_wires_for_recv,
+    distributed_step,
+    prepare_distributed_step,
     reorder_tables_for_recv,
 )
 from .sharding import (
@@ -24,17 +20,13 @@ __all__ = [
     "BLOCKS_AXIS",
     "multihost",
     "ShufflePlan",
-    "distributed_step_tables_fallback",
-    "distributed_step_flat",
-    "distributed_step_ring_flat",
+    "distributed_step",
     "execute_shuffle",
     "hash_partition",
     "make_mesh",
     "pad_block_count",
     "plan_shuffle",
-    "prepare_distributed_step_tables_fallback",
-    "prepare_flat_wires_for_recv",
-    "prepare_ring_flat_wires_for_recv",
+    "prepare_distributed_step",
     "prepare_sharded_batch",
     "reorder_tables_for_recv",
     "shard_blocks",

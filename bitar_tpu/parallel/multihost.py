@@ -1,14 +1,14 @@
 """Multi-host process topology.
 
 The reference is strictly single-process (survey §2: lcores share one
-address space; the only transport is PCIe DMA).  The TPU build's pod-level
-equivalent: one process per host, connected by ``jax.distributed``, with
-the global mesh spanning all processes' devices and block batches
-partitioned by process before the ICI shuffle.
+address space; the only transport is PCIe DMA).  The multi-host
+equivalent here: one process per host, connected by ``jax.distributed``,
+with the global mesh spanning all processes' devices and block batches
+partitioned by process before the device shuffle.
 
-On a pod slice this is driven by the launcher (one python per host with
-coordinator env vars); in tests and single-host runs everything degrades
-to process_count == 1.
+A multi-host launcher starts one python per host and passes the
+coordinator address, process count and process id to ``initialize``; in
+tests and single-host runs everything degrades to process_count == 1.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> dict:
     """Join the multi-host job (idempotent).
 
-    With no arguments, jax.distributed reads the cluster env
-    (COORDINATOR_ADDRESS etc.); single-process runs skip initialization
-    entirely.  Returns the topology description."""
+    Without a coordinator address or a process count above one this is a
+    single-process run and nothing is initialized.  Returns the topology
+    description."""
     global _initialized
     if not _initialized and (coordinator_address is not None
                              or num_processes not in (None, 1)):
@@ -60,9 +60,9 @@ def partition_blocks(nblocks: int, process_count: int | None = None,
 
     Host-level split preceding the device-level shuffle: each process
     ingests and compresses its contiguous share, then the mesh-wide
-    ``all_to_all`` redistributes compressed blocks over ICI (DCN never
-    carries block payloads — the reference's PCIe-only transport discipline
-    lifted to pod scale)."""
+    ``all_to_all`` redistributes compressed blocks between devices (host
+    networking never carries block payloads — the reference's PCIe-only
+    transport discipline lifted to many hosts)."""
     pc = process_count if process_count is not None else jax.process_count()
     pi = process_index if process_index is not None else jax.process_index()
     if not (0 <= pi < pc):

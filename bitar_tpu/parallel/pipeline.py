@@ -1,12 +1,12 @@
-"""The fused distributed pipeline step: shuffle + decode in one program.
+"""The distributed pipeline step: shuffle + decode in one program.
 
 One jitted ``shard_map`` program per step: each device stages its
-compressed slot rows, exchanges them over ICI (``all_to_all``), expands
-the received rows into byte planes, and runs the Pallas decode grid on
-what it received — so the exchange of burst k can overlap the decode of
-burst k-1 under XLA's scheduler.  This is the TPU shape of bitar's
-"enqueue next burst while the device works on the previous one" loop
-(``device.cc:197-226``), lifted to the pod level (BASELINE.json config 5).
+compressed slot rows, exchanges them with every other device
+(``all_to_all``), and runs the sequence executor on what it received, so
+the exchange of burst k can overlap the decode of burst k-1 under XLA's
+scheduler.  This is bitar's "enqueue next burst while the device works on
+the previous one" loop (``device.cc:197-226``) lifted to a multi-device
+mesh (BASELINE.json config 5).
 """
 
 from __future__ import annotations
@@ -14,13 +14,11 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.pallas import layout
-from ..ops.pallas.lz4_decode import decode_blocks
-from .sharding import BLOCKS_AXIS, _TABLE_KEYS
+from ..ops.decode import TABLE_KEYS, decode_blocks
+from .sharding import BLOCKS_AXIS
 from .shuffle import ShufflePlan
 
 
@@ -34,38 +32,28 @@ def reorder_tables_for_recv(plan: ShufflePlan,
     """
     d, rpp = plan.num_devices, plan.rows_per_pair
     n_wire = d * d * rpp
-    seq_cap = tables[_TABLE_KEYS[0]].shape[1]
-    out = {k: np.zeros((n_wire, seq_cap), np.int32) for k in _TABLE_KEYS}
+    cap = tables[TABLE_KEYS[0]].shape[1]
+    out = {k: np.zeros((n_wire, cap), np.int32) for k in TABLE_KEYS}
     out_nseq = np.zeros(n_wire, np.int32)
     flat = plan.recv_block.reshape(-1)
     live = flat >= 0
     idx = flat[live]
-    for k in _TABLE_KEYS:
+    for k in TABLE_KEYS:
         out[k][live] = tables[k][idx]
     out_nseq[live] = nseq[idx]
     return out, out_nseq
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "rows_per_pair", "comp_rows", "out_rows",
-                     "seq_cap", "block_size", "interpret"))
-def distributed_step_tables_fallback(
-        slot_rows, send_idx, valid, nseq, lit_ptr, lit_len, off,
-        mlen, out_pos, *, mesh: Mesh, rows_per_pair: int,
-        comp_rows: int, out_rows: int, seq_cap: int,
-        block_size: int, interpret: bool = False):
-    """One fused shuffle+decode step over the mesh — SEQUENCE-TABLE
-    FALLBACK wire.
-
-    The production pod-level decode is ``distributed_step_flat`` /
-    ``distributed_step_ring_flat`` (the engine's one hot loop, the
-    reference's ``device.cc:197-226``); this variant exists for imported
-    units whose blocks fail flat planning (capacity) and ride the
-    sequence-walk kernel instead.  It is not part of the dryrun.
+    jax.jit, static_argnames=("mesh", "rows_per_pair", "block_size"))
+def distributed_step(slot_rows, send_idx, valid, nseq, lit_ptr, lit_len,
+                     off, mlen, out_pos, *, mesh: Mesh, rows_per_pair: int,
+                     block_size: int):
+    """One fused shuffle + decode step over the mesh.
 
     Args (all leading dims sharded on the blocks axis):
-      slot_rows: [nblocks, slot]   uint8 compressed slot rows (pre-shuffle)
+      slot_rows: [nblocks, slot]   uint8 source rows (pre-shuffle): the
+                 compressed block, or the decoded literals of a Zstd block
       send_idx:  [D, 1, D*rpp]     per-source local staging indices
       valid:     [D, 1, D*rpp]     per-source staging validity
       nseq/tables: [D * D*rpp, ...] in *receive* order (see
@@ -83,16 +71,8 @@ def distributed_step_tables_fallback(
         recv = jax.lax.all_to_all(staged, BLOCKS_AXIS, split_axis=0,
                                   concat_axis=0)
         recv = recv.reshape(d * rows_per_pair, slot)
-        planes = recv.astype(jnp.int32).reshape(
-            d * rows_per_pair, slot // 128, 128)
-        planes = jnp.pad(planes, ((0, 0), (0, layout.GUARD_ROWS), (0, 0)))
-        decoded = decode_blocks(
-            planes, nseq_l, lp, ll, of, ml, op,
-            comp_rows=slot // 128 + layout.GUARD_ROWS, out_rows=out_rows,
-            seq_cap=seq_cap, interpret=interpret)
-        rows = block_size // 128
-        nb = decoded.shape[0]
-        return decoded[:, :rows, :].astype(jnp.uint8).reshape(nb, block_size)
+        return decode_blocks(recv, nseq_l, lp, ll, of, ml, op,
+                             block_size=block_size)
 
     spec = P(BLOCKS_AXIS)
     return jax.shard_map(
@@ -102,184 +82,29 @@ def distributed_step_tables_fallback(
     )(slot_rows, send_idx, valid, nseq, lit_ptr, lit_len, off, mlen, out_pos)
 
 
-def prepare_distributed_step_tables_fallback(
+def prepare_distributed_step(
         mesh: Mesh, plan: ShufflePlan, slot_rows: np.ndarray,
-        tables: dict[str, np.ndarray], nseq: np.ndarray, block_size: int):
-    """Host-side prep for the sequence-table FALLBACK step: shard the
-    inputs and receive-order the tables.
+        tables: dict[str, np.ndarray], nseq: np.ndarray, block_size: int,
+        put=None):
+    """Host-side prep for ``distributed_step``: shard the inputs and
+    receive-order the tables.
 
-    Returns (device_args tuple, static kwargs dict) for
-    ``distributed_step_tables_fallback``."""
+    ``put`` places one host array on the mesh (default: ``device_put``
+    with the blocks-axis sharding; multi-process callers pass a function
+    that builds the global array from this process's rows).
+    Returns (device_args tuple, static kwargs dict)."""
     d, rpp = plan.num_devices, plan.rows_per_pair
     per_src = slot_rows.shape[0] // d
     recv_tables, recv_nseq = reorder_tables_for_recv(plan, tables, nseq)
-    sharding = NamedSharding(mesh, P(BLOCKS_AXIS))
-    dev = lambda a: jax.device_put(a, sharding)  # noqa: E731
+    if put is None:
+        sharding = NamedSharding(mesh, P(BLOCKS_AXIS))
+        put = lambda a: jax.device_put(a, sharding)  # noqa: E731
     args = (
-        dev(slot_rows),
-        dev((plan.send_order % max(1, per_src)).reshape(d, 1, -1).astype(np.int32)),
-        dev((plan.send_order >= 0).reshape(d, 1, -1)),
-        dev(recv_nseq),
-        *(dev(recv_tables[k]) for k in _TABLE_KEYS),
+        put(slot_rows),
+        put((plan.send_order % max(1, per_src)).reshape(d, 1, -1).astype(np.int32)),
+        put((plan.send_order >= 0).reshape(d, 1, -1)),
+        put(recv_nseq),
+        *(put(recv_tables[k]) for k in TABLE_KEYS),
     )
-    kwargs = dict(
-        mesh=mesh, rows_per_pair=rpp,
-        comp_rows=slot_rows.shape[1] // 128 + layout.GUARD_ROWS,
-        out_rows=layout.padded_rows(block_size),
-        seq_cap=tables[_TABLE_KEYS[0]].shape[1],
-        block_size=block_size)
+    kwargs = dict(mesh=mesh, rows_per_pair=rpp, block_size=block_size)
     return args, kwargs
-
-
-def _group_flat_wires(groups: list[np.ndarray], se: np.ndarray,
-                      sh: np.ndarray, p_used: np.ndarray, p0: np.ndarray,
-                      dq: np.ndarray, row_a: np.ndarray, dense: np.ndarray,
-                      nrows: int) -> dict[str, np.ndarray]:
-    """Build one stacked flat wire per block GROUP (a [k] int array of
-    global block ids, -1 = idle row), padded to common static sizes so
-    the stacked shapes agree.  Shared by the per-destination
-    (all_to_all) and per-(destination, source)-chunk (ring) preps."""
-    from ..ops.pallas.lz4_decode_flat import (
-        DCHUNK,
-        LANES,
-        _S_QUANTUM,
-        pack_row_a_planes,
-    )
-
-    tiles = nrows // LANES
-    dmax = max(1, int(dense.max(initial=0)))
-    dcap = 1 << (dmax - 1).bit_length()
-
-    per = []
-    for blocks in groups:
-        nwire = blocks.shape[0]
-        sel = np.maximum(blocks, 0)
-        live = blocks >= 0
-        pu = np.where(live, p_used[sel], 0).astype(np.int32)
-        p0d = np.where(live, p0[sel], 0).astype(np.int32)
-        dnd = np.where(live, dense[sel], 0).astype(np.int32)
-        p_off = np.zeros(nwire, np.int32)
-        p_off[1:] = np.cumsum(pu[:-1])
-        s_used = int(pu.sum())
-        se_w = np.zeros((s_used, tiles, LANES), np.int16)
-        sh_w = np.zeros((s_used, tiles, LANES), np.int32)
-        for j in np.flatnonzero(pu):
-            b, o, pj = int(sel[j]), int(p_off[j]), int(pu[j])
-            se_w[o:o + pj] = se[b, :pj].reshape(pj, tiles, LANES)
-            sh_w[o:o + pj] = sh[b, :pj].reshape(pj, tiles, LANES)
-        wsel = np.flatnonzero(dnd > 0)
-        dq_w = dq[sel[wsel]] if wsel.size else np.zeros(
-            (0, nrows, 128), np.int16)
-        ra_w = row_a[sel[wsel], :dcap] if wsel.size else np.zeros(
-            (0, dcap, nrows), np.int32)
-        dq_idx = np.maximum(np.cumsum(dnd > 0) - 1, 0).astype(np.int32)
-        per.append((pu, p_off, p0d, dnd, dq_idx, se_w, sh_w, dq_w, ra_w))
-
-    g = len(groups)
-    s_max = max(p[5].shape[0] for p in per)
-    s_pad = -(-(s_max + DCHUNK) // _S_QUANTUM) * _S_QUANTUM
-    nd_max = max(1, max(p[7].shape[0] for p in per))
-    out = {
-        "p_used": np.stack([p[0] for p in per]),
-        "p_off": np.stack([p[1] for p in per]),
-        "p0": np.stack([p[2] for p in per]),
-        "dense": np.stack([p[3] for p in per]),
-        "dq_idx": np.stack([p[4] for p in per]),
-        "se": np.zeros((g, s_pad, tiles, LANES), np.int16),
-        "shift": np.zeros((g, s_pad, tiles, LANES), np.int32),
-        "dq": np.zeros((g, nd_max, nrows, 128), np.int16),
-        "row_a": np.zeros((g, nd_max, dcap, LANES, tiles), np.int32),
-    }
-    for gi, p in enumerate(per):
-        out["se"][gi, :p[5].shape[0]] = p[5]
-        out["shift"][gi, :p[6].shape[0]] = p[6]
-        out["dq"][gi, :p[7].shape[0]] = p[7]
-        if p[8].shape[0]:
-            out["row_a"][gi, :p[8].shape[0]] = pack_row_a_planes(p[8], dcap)
-    return out
-
-
-def prepare_flat_wires_for_recv(plan: ShufflePlan, se: np.ndarray,
-                                sh: np.ndarray, p_used: np.ndarray,
-                                p0: np.ndarray, dq: np.ndarray,
-                                row_a: np.ndarray, dense: np.ndarray,
-                                nrows: int) -> dict[str, np.ndarray]:
-    """Arrange per-block flat-plan buffers into PER-DESTINATION stacked
-    wires for ``distributed_step_flat``.
-
-    Inputs are ``bt_plan_batch``'s per-block buffers: se/sh
-    [n, max_passes, nrows], dq [n, nrows, 128] int16, row_a
-    [n, DENSE_PLANES, nrows] int32, dense [n] (0..63, or -1 identity).
-    Output arrays all have a leading [D] destination axis (sharded on
-    the blocks axis by the step)."""
-    groups = [plan.recv_block[dst].reshape(-1)
-              for dst in range(plan.num_devices)]
-    return _group_flat_wires(groups, se, sh, p_used, p0, dq, row_a, dense,
-                             nrows)
-
-
-def prepare_ring_flat_wires_for_recv(plan: ShufflePlan, se: np.ndarray,
-                                     sh: np.ndarray, p_used: np.ndarray,
-                                     p0: np.ndarray, dq: np.ndarray,
-                                     row_a: np.ndarray, dense: np.ndarray,
-                                     nrows: int) -> dict[str, np.ndarray]:
-    """Per-(destination, source)-CHUNK stacked wires for
-    ``distributed_step_ring_flat``: the ring variant decodes one source's
-    chunk per ppermute round, so each chunk needs a self-contained flat
-    wire.  Leading axes are [D_dst, D_src]; chunk wires share static
-    padded sizes (one kernel compile serves every round)."""
-    d = plan.num_devices
-    groups = [plan.recv_block[dst, src].reshape(-1)
-              for dst in range(d) for src in range(d)]
-    w = _group_flat_wires(groups, se, sh, p_used, p0, dq, row_a, dense,
-                          nrows)
-    return {k: v.reshape((d, d) + v.shape[1:]) for k, v in w.items()}
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "rows_per_pair", "comp_rows", "block_size",
-                     "gather_rows", "interpret"))
-def distributed_step_flat(slot_rows, send_idx, valid, p_used, p_off, p0,
-                          dense, dq_idx, se, shift, dq, row_a, *,
-                          mesh: Mesh, rows_per_pair: int, comp_rows: int,
-                          block_size: int, gather_rows: int | None = None,
-                          interpret: bool = False):
-    """Fused shuffle + FLAT-PLAN decode over the mesh: the engine's fast
-    path (dense per-byte wire, identity RAW copies, scheduled passes)
-    lifted to pod level.  Each destination device decodes what it
-    received with ``decode_blocks_flat`` on its local shard.
-
-    Args (leading dim D sharded on the blocks axis; wires built by
-    ``prepare_flat_wires_for_recv``); ``slot_rows`` is [nblocks, slot]
-    pre-shuffle.  Returns [D * D*rpp, block_size] uint8 by destination.
-    """
-    from ..ops.pallas.lz4_decode_flat import bias_planes, decode_blocks_flat
-
-    d = mesh.devices.size
-    slot = slot_rows.shape[1]
-    nrows = block_size // 128
-
-    def local(rows_l, send_idx_l, valid_l, pu_l, po_l, p0_l, dn_l, di_l,
-              se_l, sh_l, dq_l, ra_l):
-        staged = rows_l[send_idx_l[0, 0]] * valid_l[0, 0][:, None].astype(
-            rows_l.dtype)
-        staged = staged.reshape(d, rows_per_pair, slot)
-        recv = jax.lax.all_to_all(staged, BLOCKS_AXIS, split_axis=0,
-                                  concat_axis=0)
-        recv = recv.reshape(d * rows_per_pair, slot)
-        planes = bias_planes(recv, comp_rows)
-        decoded = decode_blocks_flat(
-            planes, pu_l[0], po_l[0], p0_l[0], se_l[0], sh_l[0], None,
-            dq_l[0], ra_l[0], dn_l[0], di_l[0],
-            comp_rows=comp_rows, out_rows=nrows, gather_rows=gather_rows,
-            interpret=interpret)
-        return decoded.reshape(d * rows_per_pair, block_size)
-
-    spec = P(BLOCKS_AXIS)
-    return jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(spec,) * 12, out_specs=spec,
-        check_vma=False,
-    )(slot_rows, send_idx, valid, p_used, p_off, p0, dense, dq_idx,
-      se, shift, dq, row_a)

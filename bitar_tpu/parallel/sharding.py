@@ -1,20 +1,21 @@
-"""Multi-chip sharding: block-parallel codec execution over a device mesh.
+"""Multi-device sharding: block-parallel codec execution over a device mesh.
 
 The reference's only parallelism is data-parallel block streams: input split
 into per-(device, queue-pair) segments, each on its own lcore
-(``demo_app.cc:577-596``, ``driver.cc:100-158``).  The TPU-native scale-out
-replaces that topology with a ``jax.sharding.Mesh``:
+(``demo_app.cc:577-596``, ``driver.cc:100-158``).  Here that topology is a
+``jax.sharding.Mesh``:
 
-* the *blocks* axis shards the batch of independent blocks across chips
-  (the dp analog — each chip runs the same Pallas decode grid on its shard),
-* collectives ride ICI via ``shard_map`` (``all_to_all`` for the
-  compressed-block shuffle, ``all_gather`` for result assembly when a
-  replicated view is wanted),
-* multi-host pods extend the same mesh across processes
+* the *blocks* axis shards the batch of independent blocks across devices
+  (the dp analog — each device runs the same sequence executor on its
+  shard),
+* collectives run under ``shard_map`` (``all_to_all`` for the
+  compressed-block shuffle), which XLA hands to NCCL on GPUs,
+* multi-host jobs extend the same mesh across processes
   (``jax.distributed.initialize``; the mesh axis spans all global devices).
 
-Everything here is mesh-shape-agnostic: tests and the dry-run drive it on
-an 8-way virtual CPU mesh, production on a pod slice.
+The mesh is 1-D over ``jax.devices()``: every GPU of a host reaches every
+other at the same NVLink rate, so the layout follows the algorithm alone.
+Tests and the dry run drive it on virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -22,16 +23,13 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.pallas import layout
-from ..ops.pallas.lz4_decode import decode_blocks
+from ..ops.decode import TABLE_KEYS, decode_blocks, pad_tables
 from ..status import Status, StatusError
 
 BLOCKS_AXIS = "blocks"
-_TABLE_KEYS = ("lit_ptr", "lit_len", "off", "mlen", "out_pos")
 
 
 def make_mesh(num_devices: int | None = None, axis: str | None = None,
@@ -64,35 +62,25 @@ def shard_blocks(mesh: Mesh, *arrays, axis: str = BLOCKS_AXIS):
     return tuple(jax.device_put(a, sharding) for a in arrays)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "comp_rows", "out_rows", "seq_cap", "block_size",
-                     "interpret"))
-def sharded_decode(comp, nseq, lit_ptr, lit_len, off, mlen, out_pos, *,
-                   mesh: Mesh, comp_rows: int, out_rows: int, seq_cap: int,
-                   block_size: int, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=("mesh", "block_size"))
+def sharded_decode(src, nseq, lit_ptr, lit_len, off, mlen, out_pos, *,
+                   mesh: Mesh, block_size: int):
     """Decode a block batch sharded over the mesh's blocks axis.
 
-    Each device runs the single-chip Pallas decode grid on its local shard;
-    no communication — blocks are independent (the whole point of
+    Each device runs the sequence executor on its local shard; no
+    communication — blocks are independent (the whole point of
     block-level compression).  Output stays sharded the same way.
     """
     spec = P(BLOCKS_AXIS)
 
-    def local_decode(comp_l, nseq_l, lp, ll, of, ml, op):
-        planes = decode_blocks(
-            comp_l, nseq_l, lp, ll, of, ml, op,
-            comp_rows=comp_rows, out_rows=out_rows, seq_cap=seq_cap,
-            interpret=interpret)
-        rows = block_size // 128
-        nb = planes.shape[0]
-        return planes[:, :rows, :].astype(jnp.uint8).reshape(nb, block_size)
+    def local_decode(*args):
+        return decode_blocks(*args, block_size=block_size)
 
     return jax.shard_map(
         local_decode, mesh=mesh,
         in_specs=(spec,) * 7, out_specs=spec,
         check_vma=False,
-    )(comp, nseq, lit_ptr, lit_len, off, mlen, out_pos)
+    )(src, nseq, lit_ptr, lit_len, off, mlen, out_pos)
 
 
 def pad_block_count(n: int, num_devices: int) -> int:
@@ -103,26 +91,16 @@ def pad_block_count(n: int, num_devices: int) -> int:
 
 def prepare_sharded_batch(comps: list[np.ndarray],
                           tables: list[dict[str, np.ndarray]],
-                          block_size: int, slot_size: int, num_devices: int):
-    """Host-side batch prep: planes + padded tables, block count padded to
-    the mesh width.  Returns (arrays dict, real_n)."""
+                          slot_size: int, num_devices: int):
+    """Host-side batch prep: source rows + padded tables, block count
+    padded to the mesh width with idle blocks (no sequences).  Returns
+    ``(arrays dict, real_n)``; ``arrays["src"]`` is ``[n, slot_size]``
+    uint8."""
     real_n = len(comps)
     n = pad_block_count(real_n, num_devices)
-    t, nseq = layout.pad_tables(tables, _TABLE_KEYS)
-    seq_cap = t["lit_ptr"].shape[1]
-    comp_rows = slot_size // 128 + layout.GUARD_ROWS
-    planes = np.zeros((n, comp_rows, 128), dtype=np.int32)
+    t, nseq = pad_tables(list(tables) + [
+        {k: np.zeros(0, np.int32) for k in TABLE_KEYS}] * (n - real_n))
+    src = np.zeros((n, slot_size), dtype=np.uint8)
     for i, c in enumerate(comps):
-        flat = planes[i].reshape(-1)
-        flat[:c.shape[0]] = c
-    full = {
-        "comp": planes,
-        "nseq": np.zeros(n, np.int32),
-        **{k: np.zeros((n, seq_cap), np.int32) for k in _TABLE_KEYS},
-    }
-    full["nseq"][:real_n] = nseq
-    for k in _TABLE_KEYS:
-        full[k][:real_n] = t[k]
-    meta = dict(comp_rows=comp_rows, seq_cap=seq_cap,
-                out_rows=layout.padded_rows(block_size), block_size=block_size)
-    return full, real_n, meta
+        src[i, :c.shape[0]] = c
+    return {"src": src, "nseq": nseq, **t}, real_n

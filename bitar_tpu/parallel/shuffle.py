@@ -1,8 +1,9 @@
 """Distributed compressed-block shuffle with skew handling.
 
-The pod-level replacement for the reference's enqueue/dequeue-burst
-pipeline: compressed blocks are hash-partitioned across chips and exchanged
-over ICI with ``all_to_all`` inside ``shard_map``, so downstream decompress
+The multi-device replacement for the reference's enqueue/dequeue-burst
+pipeline: compressed blocks are hash-partitioned across devices and
+exchanged with ``all_to_all`` inside ``shard_map`` (NCCL over NVLink
+between the GPUs of a host), so downstream decompress
 runs where the data is wanted (BASELINE.json config 5).
 
 Skew handling: real block streams have skewed *compressed* sizes (4 KiB -
@@ -147,7 +148,7 @@ def execute_shuffle(mesh: Mesh, plan: ShufflePlan, slot_rows: jax.Array
         staged = rows_l[send_idx_l[0, 0]] * valid_l[0, 0][:, None].astype(rows_l.dtype)
         staged = staged.reshape(d, plan.rows_per_pair, slot)
         # split dim 0 across devices, concat received chunks on dim 0:
-        # cell (s, d) rides the ICI link s->d.
+        # cell (s, d) rides the link s->d.
         recv = jax.lax.all_to_all(staged, BLOCKS_AXIS, split_axis=0,
                                   concat_axis=0)
         return recv.reshape(d * plan.rows_per_pair, slot)

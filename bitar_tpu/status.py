@@ -1,6 +1,6 @@
 """Status / Result error model.
 
-TPU-native re-design of the Arrow ``Status``/``Result`` currency used across
+A re-design of the Arrow ``Status``/``Result`` currency used across
 every layer of the reference (see reference ``src/include/util.h:155-207``,
 which bridges ``arrow::StatusCode`` to negative ints so hot functions can
 return plain ints). We keep the same two ideas:

@@ -1,14 +1,17 @@
 import pytest
 
 from bitar_tpu.config import (
-    CPU_INTERPRET,
-    TPU_V5E,
+    CPU,
+    GPU,
     Codec,
     EngineConfig,
+    capabilities_for_device,
+    capabilities_for_platform,
     compress_bound,
     lz4_compress_bound,
     next_power_of_two,
 )
+from bitar_tpu.status import StatusError
 
 
 def test_next_power_of_two():
@@ -39,8 +42,8 @@ def test_compress_bounds_monotone():
 
 
 def test_validate_ok():
-    assert EngineConfig().validate(TPU_V5E).ok()
-    assert EngineConfig(codec=Codec.ZSTD, level=9).validate(TPU_V5E).ok()
+    assert EngineConfig().validate(GPU).ok()
+    assert EngineConfig(codec=Codec.ZSTD, level=9).validate(GPU).ok()
 
 
 @pytest.mark.parametrize("kw,frag", [
@@ -48,21 +51,53 @@ def test_validate_ok():
     (dict(block_size=1 << 24), "block_size"),
     (dict(burst_size=0), "burst_size"),
     (dict(burst_size=10_000), "burst_size"),
-    (dict(pipeline_depth=0), "pipeline_depth"),
     (dict(max_pool_slots=3), "max_pool_slots"),
     (dict(window_log=30), "window_log"),
     (dict(codec=Codec.LZ4, window_log=20), "LZ4 window_log"),
     (dict(level=99), "level"),
 ])
 def test_validate_rejects(kw, frag):
-    st = EngineConfig(**kw).validate(TPU_V5E)
+    st = EngineConfig(**kw).validate(GPU)
     assert not st.ok()
     assert frag in st.message
 
 
 def test_validate_cpu_class_allows_small_blocks():
-    assert EngineConfig(block_size=64).validate(CPU_INTERPRET).ok()
-    assert not EngineConfig(block_size=64).validate(TPU_V5E).ok()
+    assert EngineConfig(block_size=64).validate(CPU).ok()
+    assert not EngineConfig(block_size=64).validate(GPU).ok()
+
+
+@pytest.mark.parametrize("platform,caps", [("gpu", GPU), ("cpu", CPU),
+                                           ("GPU", GPU)])
+def test_platform_maps_to_record(platform, caps):
+    assert capabilities_for_platform(platform) is caps
+
+
+@pytest.mark.parametrize("platform", ["rocm", "metal", "neuron", ""])
+def test_unknown_platform_raises(platform):
+    with pytest.raises(StatusError):
+        capabilities_for_platform(platform)
+
+
+def test_device_memory_limit_sets_arena_budget():
+    class FakeGpu:
+        platform = "gpu"
+
+        def memory_stats(self):
+            return {"bytes_limit": 100 << 30}
+
+    class FakeCpu:
+        platform = "cpu"
+
+        def memory_stats(self):
+            return None
+
+    assert capabilities_for_device(FakeGpu()).hbm_budget_bytes == 50 << 30
+    assert capabilities_for_device(FakeCpu()) is CPU
+    # the bench's arena (1056 x 256 KiB slots) fits the static GPU record
+    cfg = EngineConfig(block_size=128 * 1024, burst_size=1024,
+                       max_pool_slots=1056)
+    assert cfg.validate(GPU).ok()
 
 
 def test_zstd_level_knob(rng=None):
@@ -75,7 +110,7 @@ def test_zstd_level_knob(rng=None):
     for level in (1, 9):
         cfg = bt.EngineConfig(codec=bt.Codec.ZSTD, block_size=8192,
                               max_pool_slots=32, level=level,
-                              use_tpu_kernels=False)
+                              use_device_kernels=False)
         with bt.Engine(cfg) as eng:
             unit = eng.compress(data)
             sizes[level] = unit.manifest.total_comp
@@ -90,53 +125,10 @@ def test_adler32_checksum_roundtrip():
     import bitar_tpu as bt
     cfg = bt.EngineConfig(codec=bt.Codec.SNAPPY, block_size=1024,
                           max_pool_slots=32, checksum=bt.Checksum.ADLER32,
-                          use_tpu_kernels=False)
+                          use_device_kernels=False)
     with bt.Engine(cfg) as eng:
         data = b"adler " * 700
         unit = eng.compress(data)
         assert (unit.manifest.checksums != 0).any()
         assert eng.decompress(unit).tobytes() == data
         eng.recycle(unit)
-
-
-def test_device_matcher_slot_limit_unreachable():
-    # materialize() packs the slot index in 15 bits.  Round 4's wcap=8
-    # parse budget bounds slots at nseg*8 + 1, so EVERY valid config
-    # (block_size <= 1 MiB) stays under the limit — the advisor-r3
-    # config-time rejection is now an invariant, verified here against
-    # the worst corner (largest block, smallest min_match).
-    import bitar_tpu as bt
-    from bitar_tpu.config import TPU_V5E, device_matcher_slots
-
-    worst = device_matcher_slots(1024 * 1024, 4)
-    assert worst < 1 << 15, "wcap bound must keep the 15-bit key packable"
-    cfg = bt.EngineConfig(codec=bt.Codec.LZ4, block_size=128 * 1024,
-                          min_match=4, compress_matcher="device")
-    assert cfg.validate(TPU_V5E).ok()
-
-
-def test_device_matcher_offset_bounds_rejected():
-    import bitar_tpu as bt
-    from bitar_tpu.config import TPU_V5E
-
-    bad = bt.EngineConfig(codec=bt.Codec.LZ4, block_size=128 * 1024,
-                          compress_matcher="device",
-                          match_offsets=(1, 70000))
-    st = bad.validate(TPU_V5E)
-    assert not st.ok() and "65535" in st.message
-
-
-def test_compress_blocks_device_packing_invariants():
-    import numpy as np
-    import pytest as _pytest
-
-    from bitar_tpu.ops.device_compress import compress_blocks_device
-    from bitar_tpu.status import StatusError
-
-    planes = np.zeros((1, 16384), np.uint8)
-    lens = np.array([16384], np.int32)
-    with _pytest.raises(StatusError):
-        compress_blocks_device(planes, lens, max_match=4096, interpret=True)
-    with _pytest.raises(StatusError):
-        compress_blocks_device(planes, lens, offsets=(1, 1 << 17),
-                               interpret=True)

@@ -65,7 +65,7 @@ def test_sequence_table_covers_output(codec, corpus):
 
 def test_sequence_table_reconstructs(corpus):
     """Replaying the sequence table in numpy reproduces the input — the
-    same contract the TPU kernel implements."""
+    same contract the device executor implements."""
     for data in corpus:
         if not data:
             continue

@@ -3,9 +3,9 @@ demo app (``demo_app.cc:487-546``) as an automated suite — compress,
 decompress, memcmp against the original, recycle-count assertions — plus
 the state machine and error paths.
 
-Runs on CPU: TPU kernels execute through the host decode path by default
-(``use_tpu_kernels=False``); a small interpreter-mode case covers the
-Pallas path end-to-end.
+Runs on CPU: most cases use the host codec path
+(``use_device_kernels=False``); the device-decode cases run the sequence
+executor on JAX's CPU backend, the same program a GPU runs.
 """
 
 import numpy as np
@@ -16,7 +16,7 @@ import bitar_tpu as bt
 
 def small_config(**kw) -> bt.EngineConfig:
     base = dict(codec=bt.Codec.LZ4, block_size=1024, burst_size=8,
-                max_pool_slots=64, use_tpu_kernels=False)
+                max_pool_slots=64, use_device_kernels=False)
     base.update(kw)
     return bt.EngineConfig(**base)
 
@@ -59,18 +59,89 @@ def test_all_codecs_roundtrip(codec, rng):
         eng.recycle(unit)
 
 
-def test_tpu_kernel_path_interpret(rng):
-    # Full engine flow through the Pallas kernel (interpreter mode).
-    cfg = small_config(block_size=256, use_tpu_kernels=True, interpret=True,
-                       burst_size=4)
+def test_device_kernel_path(rng):
+    # Full engine flow through the device sequence executor.
+    cfg = small_config(block_size=256, use_device_kernels=True, burst_size=4)
     with bt.Engine(cfg) as eng:
-        data = (b"pallas path! " * 60)[:700]
+        data = (b"device path! " * 60)[:700]
         unit = eng.compress(data)
         out = eng.decompress(unit)
-        # small blocks can't plan -> lazily built sequence tables
+        # tables are built lazily at the first decode
         assert unit.tables is not None
         assert out.tobytes() == data
-        assert eng.stats.tpu_decode_bursts > 0
+        assert eng.stats.device_decode_bursts > 0
+        assert eng.stats.host_decode_bursts == 0
+        eng.recycle(unit)
+
+
+BLOCK = 16 * 1024
+
+
+def device_engine(**kw):
+    base = dict(codec=bt.Codec.LZ4, block_size=BLOCK, burst_size=4,
+                max_pool_slots=32, use_device_kernels=True)
+    base.update(kw)
+    return bt.Engine(bt.EngineConfig(**base)).initialize()
+
+
+def test_engine_planned_path_roundtrip(rng):
+    # Multi-burst unit with a ragged tail through the device path.
+    with device_engine() as eng:
+        data = (b"engine device path " * 2000)[:2 * BLOCK + 777]
+        unit = eng.compress(data)
+        eng.ensure_tables(unit)
+        assert unit.tables is not None and (unit.table_status == 0).all()
+        out = eng.decompress(unit)
+        assert out.tobytes() == data
+        eng.recycle(unit)
+
+
+def test_engine_planned_mixed_entropy(rng):
+    with device_engine() as eng:
+        data = (rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()
+                + b"\x00" * BLOCK
+                + (b"abcabcabc" * (BLOCK // 9 + 1))[:BLOCK])
+        unit = eng.compress(data)
+        out = eng.decompress(unit)
+        assert out.tobytes() == data
+        eng.recycle(unit)
+
+
+def test_engine_small_blocks_decode_on_device(rng):
+    # 1 KiB blocks ride the same executor (no block-size floor of its own).
+    with device_engine(block_size=1024, burst_size=4) as eng:
+        data = (b"small blocks " * 300)[:2500]
+        unit = eng.compress(data)
+        out = eng.decompress(unit)
+        assert out.tobytes() == data
+        assert eng.stats.host_decode_bursts == 0
+        eng.recycle(unit)
+
+
+def test_decompress_device_planned(rng):
+    import jax
+    with device_engine() as eng:
+        data = (b"device resident " * (BLOCK // 15 + 1))[:BLOCK] + b"\x44" * BLOCK
+        unit = eng.compress(data)
+        bursts = eng.decompress_device(unit)
+        jax.block_until_ready(bursts)
+        host = np.concatenate([np.asarray(b) for b in bursts])
+        assert host.shape[1] == BLOCK
+        got = b"".join(host[i].tobytes()[:int(unit.manifest.raw_len[i])]
+                       for i in range(unit.nblocks))
+        assert got == data
+        eng.recycle(unit)
+
+
+def test_prepare_device_decode_relaunches(rng):
+    # The staged whole-unit launch is repeatable and matches decompress.
+    with device_engine(codec=bt.Codec.ZSTD) as eng:
+        data = (b"resident relaunch " * (3 * BLOCK // 18 + 1))[:3 * BLOCK - 5]
+        unit = eng.compress(data)
+        launch = eng.prepare_device_decode(unit)
+        first, second = np.asarray(launch()), np.asarray(launch())
+        assert (first == second).all() and first.shape == (3, BLOCK)
+        assert first.reshape(-1)[:len(data)].tobytes() == data
         eng.recycle(unit)
 
 
@@ -202,19 +273,18 @@ def test_import_rejects_block_size_mismatch(engine, rng):
 
 def test_batched_multi_stream_decode():
     """prepare_batched_decode merges mixed-codec units into one launch
-    and stays bit-exact per stream (the TPU answer to the reference's
-    async fan-out, demo_app.cc:548-693)."""
+    and stays bit-exact per stream (the one-device answer to the
+    reference's async fan-out, demo_app.cc:548-693)."""
     import bitar_tpu as bt
     from bitar_tpu.engine.device import prepare_batched_decode
 
     block = 16 * 1024
-    nrows = block // 128
     items, datas = [], []
     for s_i, codec in enumerate([bt.Codec.LZ4, bt.Codec.ZSTD,
                                  bt.Codec.SNAPPY]):
         cfg = bt.EngineConfig(codec=codec, block_size=block, burst_size=16,
                               max_pool_slots=64, commit="deferred",
-                              use_tpu_kernels=True, interpret=True)
+                              use_device_kernels=True)
         eng = bt.Engine(cfg).initialize()
         rng = np.random.default_rng(40 + s_i)
         parts = []
@@ -232,7 +302,7 @@ def test_batched_multi_stream_decode():
     launch, slices = prepare_batched_decode(items)
     out = np.asarray(launch())
     for (lo, hi), d in zip(slices, datas):
-        assert out[lo:hi, :nrows, :].reshape(-1).tobytes() == d
+        assert out[lo:hi].reshape(-1).tobytes() == d
     for eng, unit in items:
         eng.recycle(unit)
         eng.release()

@@ -20,7 +20,7 @@ BLOCK = 2048
 
 def cfg(**kw):
     base = dict(codec=bt.Codec.LZ4, block_size=BLOCK, burst_size=8,
-                max_pool_slots=64, use_tpu_kernels=False,
+                max_pool_slots=64, use_device_kernels=False,
                 checksum=bt.Checksum.CRC32)
     base.update(kw)
     return bt.EngineConfig(**base)
@@ -62,12 +62,12 @@ def test_corrupt_block_mid_unit_reports_all_bad_blocks(rng):
         eng.recycle(unit)
 
 
-def test_corrupt_block_tpu_path(rng):
-    # Same injection through the planned/TPU (interpret) path: 16 KiB
-    # blocks so the flat-plan kernel is the active path and the corrupt
-    # block routes to the host per-block (no whole-unit fallback).
+def test_corrupt_block_device_path(rng):
+    # Same injection through the device decode path: the corrupt block's
+    # framing fails to parse, it is named in the status, and its
+    # neighbors still decode on the device (no whole-unit fallback).
     data = bytes(rng.integers(97, 110, 4 * 16384, dtype=np.uint8))
-    c = cfg(use_tpu_kernels=True, interpret=True, block_size=16384)
+    c = cfg(use_device_kernels=True, block_size=16384)
     cb = make_unit_bytes(c, data)
     off = int(cb.manifest.comp_off[1])
     cb.packed[off + 2] ^= 0xFF
@@ -76,25 +76,27 @@ def test_corrupt_block_tpu_path(rng):
         out, status = eng.decompress_status(unit)
         assert status[1] < 0
         assert (status[np.arange(4) != 1] == 0).all()
+        for i in (0, 2, 3):
+            o, ln = int(cb.manifest.raw_off[i]), int(cb.manifest.raw_len[i])
+            assert out[o:o + ln].tobytes() == data[o:o + ln], f"block {i}"
+        assert eng.stats.host_decode_bursts == 0
         eng.recycle(unit)
 
 
 def test_corrupt_slot_after_table_build_is_named(rng):
-    # The sequence-TABLE path (plan_flat is None: 2 KiB blocks are not
-    # lane-tiled) executes tables parsed at build time; bytes corrupted
-    # in the arena AFTER that build must still surface as real per-block
-    # status (the decode-time framing walk; reference device.cc:512-520)
-    # — round 2 reported fake zeros here.
+    # The device decoder executes tables parsed at build time; bytes
+    # corrupted in the arena AFTER that build must still surface as real
+    # per-block status (the decode-time framing walk; reference
+    # device.cc:512-520).
     import jax.numpy as jnp
 
     data = (b"table path payload %d " % 7) * (8 * BLOCK // 21)
     data = data[:8 * BLOCK]
-    c = cfg(use_tpu_kernels=True, interpret=True, checksum=bt.Checksum.NONE)
+    c = cfg(use_device_kernels=True, checksum=bt.Checksum.NONE)
     with bt.Engine(c) as eng:
         unit = eng.compress(data)
-        eng.ensure_plans(unit)
-        assert unit.plan_flat is None and unit.tables is not None, \
-            "test needs the table path"
+        eng.ensure_tables(unit)
+        assert unit.tables is not None
         assert int(unit.manifest.comp_len[3]) < BLOCK, "block 3 must be LZ4"
         # corrupt block 3's slot in place (post-table-build)
         slot = unit.refs[3].slot
@@ -113,7 +115,7 @@ def test_corrupt_slot_after_table_build_is_named(rng):
 
 
 def test_table_path_validation_is_generation_cached(rng, monkeypatch):
-    # The table-path framing walk is O(bytes); repeat decompresses of
+    # The decode-time framing walk is O(bytes); repeat decompresses of
     # untouched slots must skip it (generation-gated cache), while a slot
     # rewritten afterwards still re-validates and is named.
     import jax.numpy as jnp
@@ -122,11 +124,11 @@ def test_table_path_validation_is_generation_cached(rng, monkeypatch):
 
     data = (b"cache the framing walk %d " % 3) * (8 * BLOCK // 26)
     data = data[:8 * BLOCK]
-    c = cfg(use_tpu_kernels=True, interpret=True, checksum=bt.Checksum.NONE)
+    c = cfg(use_device_kernels=True, checksum=bt.Checksum.NONE)
     with bt.Engine(c) as eng:
         unit = eng.compress(data)
-        eng.ensure_plans(unit)
-        assert unit.plan_flat is None and unit.tables is not None
+        eng.ensure_tables(unit)
+        assert unit.tables is not None
         out, status = eng.decompress_status(unit)
         assert (status == 0).all()
         # Second decompress: no parse_sequences calls (cache hit).
@@ -153,8 +155,9 @@ def test_table_path_validation_is_generation_cached(rng, monkeypatch):
 
 
 def test_mixed_codec_unit_splits_per_block(rng):
-    # LZ4 + zstd blocks in ONE unit: every block rides the device kernel
-    # (zstd via its entropy-decoded literal plane) — no host fallback.
+    # LZ4 + zstd blocks in ONE unit: every block rides the device
+    # executor (zstd via its entropy-decoded literal stream) — no host
+    # fallback.
     pytest.importorskip("zstandard")
     import zstandard
 
@@ -178,16 +181,15 @@ def test_mixed_codec_unit_splits_per_block(rng):
         m.checksums[i] = checksum_of(bt.Checksum.CRC32, b)
     cb = CompressedBuffers(manifest=m, packed=np.concatenate(comp))
 
-    c = cfg(use_tpu_kernels=True, interpret=True, block_size=bs)
+    c = cfg(use_device_kernels=True, block_size=bs)
     with bt.Engine(c) as eng:
         unit = eng.import_unit(cb)
         out = eng.decompress(unit)
         assert out.tobytes() == b"".join(blocks)
-        assert unit.plan_flat is not None, "all blocks should have planned"
-        hb = unit.plan_flat.get("host_blocks")
-        assert hb is not None and hb.tolist() == []
-        # the zstd block decodes on device from its literal plane
-        assert 3 in (unit.plan_flat.get("lit_planes") or {})
+        assert (unit.table_status == 0).all()
+        assert eng.stats.host_decode_bursts == 0
+        # the zstd block decodes on device from its literal stream
+        assert list(unit.lit_rows) == [3]
         eng.recycle(unit)
 
 
@@ -236,18 +238,21 @@ def test_container_mutation_fuzz(rng):
                 eng.recycle(unit)
 
 
-def test_kernel_failure_falls_back_to_host(rng, caplog):
-    # A kernel/compile failure on the planned path must degrade to the
-    # host decoder (the software backend the reference lacked), loudly,
-    # instead of dying — real per-block StatusErrors still surface.
+def test_device_decode_failure_raises(rng):
+    # A failure of the device decode itself (compile, launch, runtime)
+    # surfaces from Engine.decompress: there is no silent host fallback,
+    # so a device-decode result can never be a host result.
     from unittest.mock import patch
 
-    data = (b"fallback payload " * 4000)[:12 * BLOCK]
-    config = cfg(block_size=16 * 1024, use_tpu_kernels=True, interpret=True)
+    data = (b"no fallback payload " * 4000)[:12 * BLOCK]
+    config = cfg(block_size=16 * 1024, use_device_kernels=True)
     with bt.Engine(config) as eng:
         unit = eng.compress(data)
-        with patch.object(eng, "_planned_bursts",
-                          side_effect=RuntimeError("mosaic lowering failed")):
-            out = eng.decompress(unit)
-        assert out.tobytes() == data
+        with patch("bitar_tpu.engine.device.decode_blocks",
+                   side_effect=RuntimeError("device launch failed")):
+            with pytest.raises(RuntimeError, match="device launch failed"):
+                eng.decompress(unit)
+        assert eng.stats.host_decode_bursts == 0
+        # the unit is intact: the real executor decodes it afterwards
+        assert eng.decompress(unit).tobytes() == data
         eng.recycle(unit)

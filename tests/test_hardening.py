@@ -2,7 +2,8 @@
 
 The reference treats untrusted compressed data as a first-class threat
 surface only implicitly (hardware validates streams); this build's native
-walks and planner must refuse malformed containers explicitly.
+walks and the device decode path must refuse malformed containers
+explicitly.
 """
 
 import numpy as np
@@ -33,13 +34,30 @@ def test_snappy_huge_literal_length_rejected():
         native.snappy_decompress(evil, dst_cap=64)
 
 
-def test_plan_rows_out_len_exceeding_rows_rejected():
-    # out_len beyond nrows*128 used to index the schedule's row tables out
-    # of bounds (heap overflow); now refused as Invalid.
-    comp = native.lz4_compress(b"a" * 4096)
-    with pytest.raises(StatusError):
-        native.plan_block(comp, out_len=10 * 128 * 128, nrows=10,
-                          max_passes=8, codec="lz4")
+def test_device_path_lying_manifest_raw_len():
+    # A manifest that over-states a block's raw_len: the table build
+    # refuses the block (its decoded extent disagrees), the device
+    # executor never runs past the real output, and the block is named.
+    data = bytes(np.random.default_rng(1).integers(97, 110, 4096,
+                                                   dtype=np.uint8))
+    cfg = EngineConfig(codec=Codec.LZ4, block_size=2048, burst_size=4,
+                       max_pool_slots=32, use_device_kernels=False)
+    with Engine(cfg) as eng:
+        unit = eng.compress(data)
+        cb = unit.to_host()
+        eng.recycle(unit)
+    raw_len = cb.manifest.raw_len.copy()
+    raw_len[0] -= 7
+    lying = BlockManifest(
+        block_size=cb.manifest.block_size, total_raw=int(raw_len.sum()),
+        raw_len=raw_len, comp_len=cb.manifest.comp_len,
+        codec_ids=cb.manifest.codec_ids, checksums=cb.manifest.checksums)
+    bad = CompressedBuffers(manifest=lying, packed=cb.packed)
+    with Engine(cfg.replace(use_device_kernels=True)) as eng:
+        unit = eng.import_unit(bad)
+        _, status = eng.decompress_status(unit)
+        assert status[0] < 0 and (status[1:] == 0).all(), status.tolist()
+        assert eng.stats.host_decode_bursts == 0
 
 
 def test_manifest_rejects_oversized_last_block():
@@ -78,13 +96,12 @@ def test_manifest_truncated_columns():
 @pytest.fixture
 def cpu_engine_config():
     return EngineConfig(codec=Codec.LZ4, block_size=1024, burst_size=8,
-                        max_pool_slots=64, use_tpu_kernels=False)
+                        max_pool_slots=64, use_device_kernels=False)
 
 
 def test_import_lying_manifest_raw_len(cpu_engine_config):
-    # Container whose manifest under-states raw_len: the planner and table
-    # parser must fall back (not crash); the host path reports the real
-    # size disagreement.
+    # Container whose manifest under-states raw_len: the host path
+    # reports the real size disagreement (not a crash).
     data = bytes(np.random.default_rng(0).integers(97, 110, 4096, dtype=np.uint8))
     with Engine(cpu_engine_config) as eng:
         unit = eng.compress(data)

@@ -1,6 +1,6 @@
 """Engine-level standard-format interop: data compressed by FOREIGN
 implementations (pyarrow's reference LZ4/Snappy) flows through import ->
-arena -> TPU decode kernels bit-exactly, and our engine's output feeds
+arena -> device decode executor bit-exactly, and our engine's output feeds
 foreign decoders.  The round-trip oracle of the reference demo app,
 extended across implementations.
 """
@@ -31,29 +31,30 @@ def foreign_container(data: bytes, codec: bt.Codec) -> CompressedBuffers:
 
 
 @pytest.mark.parametrize("codec", [bt.Codec.LZ4, bt.Codec.SNAPPY])
-@pytest.mark.parametrize("path", ["planned", "tables"])
-def test_foreign_blocks_through_tpu_decode(codec, path, rng):
+@pytest.mark.parametrize("path", ["decompress", "resident"])
+def test_foreign_blocks_through_device_decode(codec, path, rng):
     data = ((b"foreign interop " * (BLOCK // 10))[:BLOCK]
             + bytes(rng.integers(0, 64, BLOCK, dtype=np.uint8))
             + b"\x55" * (BLOCK // 2))
     cfg = bt.EngineConfig(codec=codec, block_size=BLOCK, burst_size=4,
-                          max_pool_slots=32, use_tpu_kernels=True,
-                          interpret=True)
+                          max_pool_slots=32, use_device_kernels=True)
     with bt.Engine(cfg) as eng:
         unit = eng.import_unit(foreign_container(data, codec))
-        if path == "tables":
-            unit._planned = True    # force the sequence-table kernel
-            unit.plan_flat = None
-            eng.ensure_tables(unit)
-        out = eng.decompress(unit)
+        if path == "resident":      # device-resident bursts, no readout
+            rows = np.concatenate([np.asarray(b) for b in
+                                   eng.decompress_device(unit)])
+            out = rows[:unit.nblocks].reshape(-1)[:len(data)]
+        else:
+            out = eng.decompress(unit)
         assert out.tobytes() == data
+        assert eng.stats.host_decode_bursts == 0
         eng.recycle(unit)
 
 
 def test_our_blocks_through_foreign_decoder(rng):
     data = (b"outbound interop " * 3000)[:2 * BLOCK + 500]
     cfg = bt.EngineConfig(codec=bt.Codec.LZ4, block_size=BLOCK, burst_size=4,
-                          max_pool_slots=32, use_tpu_kernels=False)
+                          max_pool_slots=32, use_device_kernels=False)
     with bt.Engine(cfg) as eng:
         unit = eng.compress(data)
         cb = unit.to_host()

@@ -55,7 +55,6 @@ def test_two_process_direct_collective():
     """jax.distributed init + cross-process all_to_all/psum WITHOUT the
     bench CLI in the loop: catches distributed-runtime regressions even
     when the CLI artifact path is broken (round-4 verdict weak #7)."""
-    import time
     port = 9931
     procs = [subprocess.Popen(
         [sys.executable, "-c", _DIRECT_WORKER % port, str(pid)],
@@ -66,23 +65,6 @@ def test_two_process_direct_collective():
         so, se = p.communicate(timeout=300)
         assert p.returncode == 0, (pid, se.decode()[-2000:])
         assert b"direct-collective ok" in so, so.decode()
-
-
-def test_two_process_ring_flat_step():
-    """The ring-pipelined flat step across 2 real processes (ppermute
-    rounds over the process boundary)."""
-    cmd = [sys.executable, "-m", "bitar_tpu.cli.multihost_bench",
-           "--launch", "2", "--blocks", "16", "--reps", "1",
-           "--step", "ring-flat", "--port", "9927"]
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    r = subprocess.run(cmd, capture_output=True, timeout=560, env=env,
-                       cwd=REPO)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-    artifact = json.loads(r.stdout.decode())
-    assert artifact["multi"]["processes"] == 2
-    assert artifact["multi"]["verified_blocks"] >= 1
-    assert artifact["scaling_efficiency"] > 0
 
 
 def test_two_process_fused_step_scaling():
@@ -97,6 +79,7 @@ def test_two_process_fused_step_scaling():
                        cwd=REPO)
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     artifact = json.loads(r.stdout.decode())
+    assert artifact["platform"] == "cpu"
     assert artifact["multi"]["processes"] == 2
     assert artifact["multi"]["devices"] == 8
     # every staged block was received and verified by exactly one process
@@ -105,4 +88,7 @@ def test_two_process_fused_step_scaling():
     # grids, so the efficiency number can see regressions)
     assert artifact["single"]["verified_blocks"] == 8
     assert artifact["single"]["blocks"] == 8
-    assert artifact["scaling_efficiency"] > 0
+    assert artifact["cpu_scaling_efficiency"] > 0
+    # CPU times only, under CPU names
+    assert "step_ms" not in artifact["multi"]
+    assert artifact["multi"]["cpu_step_ms"] > 0

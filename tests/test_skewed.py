@@ -29,13 +29,13 @@ def make_skewed(rng, nblocks, max_size, min_size=64):
     return b"".join(parts), [int(s) for s in sizes]
 
 
-@pytest.mark.parametrize("tpu", [False, True])
-def test_skewed_roundtrip(rng, tpu):
-    block = 16384 if tpu else 2048
+@pytest.mark.parametrize("device", [False, True])
+def test_skewed_roundtrip(rng, device):
+    block = 16384 if device else 2048
     data, sizes = make_skewed(rng, 10, block)
     cfg = bt.EngineConfig(codec=bt.Codec.LZ4, block_size=block, burst_size=4,
-                          max_pool_slots=64, use_tpu_kernels=tpu,
-                          interpret=tpu, checksum=bt.Checksum.CRC32)
+                          max_pool_slots=64, use_device_kernels=device,
+                          checksum=bt.Checksum.CRC32)
     with bt.Engine(cfg) as eng:
         unit = eng.compress(data, sizes=sizes)
         assert not unit.manifest.uniform
@@ -68,7 +68,7 @@ def test_skewed_sizes_validation():
 
 def test_compress_sizes_must_sum(rng):
     cfg = bt.EngineConfig(codec=bt.Codec.LZ4, block_size=2048, burst_size=4,
-                          max_pool_slots=64, use_tpu_kernels=False)
+                          max_pool_slots=64, use_device_kernels=False)
     with bt.Engine(cfg) as eng:
         with pytest.raises(StatusError):
             eng.compress(b"x" * 1000, sizes=[512, 512, 512])

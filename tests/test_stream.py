@@ -14,7 +14,7 @@ import bitar_tpu as bt
 
 def small_config(**kw) -> bt.EngineConfig:
     base = dict(codec=bt.Codec.LZ4, block_size=1024, burst_size=8,
-                max_pool_slots=128, use_tpu_kernels=False)
+                max_pool_slots=128, use_device_kernels=False)
     base.update(kw)
     return bt.EngineConfig(**base)
 

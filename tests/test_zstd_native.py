@@ -1,10 +1,10 @@
-"""From-scratch native zstd codec (ops/cpu/zstd.cc) + its TPU plan path.
+"""From-scratch native zstd codec (ops/cpu/zstd.cc) + its device decode path.
 
 Decoder AND encoder are validated against the environment's ``zstandard``
 module (the upstream reference implementation) across entropy classes,
 levels, checksummed frames and multi-block frames; ``bt_zstd_parse``
-feeds the plan-execute kernel with literals from a host-entropy-decoded
-plane, so zstd sequence execution happens on device like LZ4/Snappy.
+feeds the device executor with literals from a host-entropy-decoded
+stream, so zstd sequence execution happens on device like LZ4/Snappy.
 """
 
 import numpy as np
@@ -77,22 +77,21 @@ def test_parse_reconstruction(rng):
 
 def test_engine_zstd_device_path(rng):
     # codec=ZSTD end to end: native compression (zstd.cc encoder), decode
-    # through the plan-execute kernel sourcing the literal plane.
+    # through the device executor sourcing the decoded literal stream.
     bs = 16384
     data = ((b"zstd on the device! " * 900)[:bs]
             + bytes(rng.integers(0, 9, bs, dtype=np.uint8))
             + b"\x00" * bs)
     cfg = bt.EngineConfig(codec=bt.Codec.ZSTD, block_size=bs, burst_size=4,
-                          max_pool_slots=64, use_tpu_kernels=True,
-                          interpret=True, level=3,
+                          max_pool_slots=64, use_device_kernels=True, level=3,
                           checksum=bt.Checksum.CRC32)
     with bt.Engine(cfg) as eng:
         unit = eng.compress(data)
         out = eng.decompress(unit)
         assert out.tobytes() == data
-        assert unit.plan_flat is not None
-        assert unit.plan_flat["host_blocks"].tolist() == []
-        assert len(unit.plan_flat.get("lit_planes") or {}) >= 1
+        assert (unit.table_status == 0).all()
+        assert eng.stats.host_decode_bursts == 0
+        assert len(unit.lit_rows) >= 1
         blob = unit.to_host().to_bytes()
         eng.recycle(unit)
     with bt.Engine(cfg) as eng:
@@ -147,10 +146,10 @@ def test_encoder_edges():
 
 
 def test_engine_zstd_host_backend(rng):
-    # use_tpu_kernels=False: the native decoder serves the batch path.
+    # use_device_kernels=False: the native decoder serves the batch path.
     data = bytes(rng.integers(97, 123, 30000, dtype=np.uint8))
     cfg = bt.EngineConfig(codec=bt.Codec.ZSTD, block_size=2048, burst_size=8,
-                          max_pool_slots=64, use_tpu_kernels=False, level=5)
+                          max_pool_slots=64, use_device_kernels=False, level=5)
     with bt.Engine(cfg) as eng:
         unit = eng.compress(data)
         out = eng.decompress(unit)
